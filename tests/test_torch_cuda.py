@@ -1,0 +1,96 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need a CUDA device and nvcc; without them every test skips. On a
+machine with a card (``--noconftest``: tests/conftest.py sets up JAX, which
+the port and this file do not use):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
+from gym_simpletetris_tpu_torch.core import engine as E
+from gym_simpletetris_tpu_torch.core.state import FIELDS, init_state
+from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step, raster
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("flags", [
+    dict(), dict(width=9, height=12, lock_delay=3, high_scoring=True,
+                 penalise_holes_increase=True),
+    dict(width=24, advanced_clears=True, penalise_height_increase=True)])
+def test_step_kernel_matches_plain(dev, flags):
+    cfg = EnvConfig(**flags)
+    B = 333                                      # a ragged tail block
+    rng = np.random.RandomState(0)
+    s, _ = E.engine_clear(cfg, init_state(cfg, B, 0, dev))
+    s_k = s_p = s
+    n = cuda_step.step.launches
+    for t in range(60):
+        a = torch.as_tensor(rng.randint(0, 7, B), device=dev)
+        r = torch.as_tensor(rng.randint(1, 36, B), device=dev)
+        o_k = E.engine_step(cfg, s_k, a, injected_r=r)
+        o_p = E.engine_step_plain(cfg, s_p, a, injected_r=r)
+        for f in FIELDS:
+            assert torch.equal(getattr(o_k.state, f), getattr(o_p.state, f)), \
+                (f, t)
+        assert torch.equal(o_k.emitted_rows, o_p.emitted_rows), t
+        assert torch.equal(o_k.reward.view(torch.int32),
+                           o_p.reward.view(torch.int32)), t
+        assert torch.equal(o_k.done, o_p.done), t
+        s_k, s_p = o_k.state, o_p.state
+    assert cuda_step.step.launches == n + 60
+
+
+@pytest.mark.parametrize("w,h,size", [(10, 20, 84), (9, 12, 84), (24, 20, 84),
+                                      (10, 20, 160), (4, 5, 83)])
+def test_raster_kernels_match_plain(dev, w, h, size):
+    cfg = EnvConfig(width=w, height=h)
+    rng = np.random.RandomState(w * h)
+    words = rng.randint(0, 2 ** 32, (h, 257), dtype=np.uint64).astype(np.uint32)
+    rows = torch.from_numpy(words.view(np.int32)).to(dev)
+    img = cuda_raster.rasterize_rows(cfg, rows, size)
+    assert torch.equal(img, raster.rasterize_rows_plain(cfg, rows, size))
+    acc = torch.as_tensor(rng.randint(0, 256, img.shape, dtype=np.uint8),
+                          device=dev)
+    want = raster.raster_accumulate_plain(cfg, rows, acc.clone(), size)
+    assert torch.equal(cuda_raster.raster_accumulate(cfg, rows, acc, size), want)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    cfg = EnvConfig()
+    rows = torch.zeros((20, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        cuda_raster.rasterize_rows(cfg, rows.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_raster.rasterize_rows(cfg, torch.zeros((8, 20), dtype=torch.int32,
+                                                    device=dev).T)
+    acc = torch.zeros((8, 84, 84), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_raster.raster_accumulate(cfg, rows, acc[:4])
+
+
+def test_env_on_the_card_matches_the_cpu(dev):
+    """The main path on CUDA (kernels) against the same path on the CPU."""
+    for o in ("ram", "grayscale", "rgb"):
+        cfg = EnvConfig(obs_type=o, auto_reset=True)
+        envs = [TetrisVectorEnv(cfg, 64, device=d) for d in ("cpu", "cuda")]
+        acts = np.random.RandomState(1).randint(0, 7, (40, 64))
+        outs = []
+        for env in envs:
+            _, s = env.reset(0)
+            final, acc, rew, done = env.rollout(s, acts)
+            outs.append((final.rows.cpu(), acc.cpu(), rew.cpu(), done.cpu()))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), o
