@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gym_simpletetris_tpu_torch/csrc`` with
-nvcc, holds each kernel bitwise against its plain PyTorch version on the card,
-replays the golden reference traces through the CUDA path, drives the main
-path (``TetrisVectorEnv`` reset / step / rollout with auto_reset at B = 4096
-for ram, grayscale and rgb) and times the kernels beside their plain
-versions. One line per phase; then a JSON line of the kernels, the card's
-name and power limit, and as the last line
+nvcc, holds each kernel bitwise against its plain PyTorch version on the card
+(single-word boards, and wide boards of 25 to 1024 columns), replays the
+golden reference traces through the CUDA path, drives the main path
+(``TetrisVectorEnv`` reset / step / rollout with auto_reset at B = 4096 for
+ram, grayscale and rgb) on the default 10 x 20 board and on the wide 32 x 20
+board, and times the kernels beside their plain versions. One line per
+phase; then a JSON line of the kernels, the card's name and power limit, and
+as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure, or no CUDA device, exits nonzero without that line. Imports
 nothing of JAX.
@@ -36,6 +38,22 @@ FLAG_SETS = (
     dict(width=9, height=12, lock_delay=3),
     dict(width=24, reward_step=True, penalise_holes_increase=True),  # bit 31
 )
+# Wide boards (multi-word rows): (flags, batch sizes). NW = 2, 2, 2, 3, 4, 33.
+WIDE_STEPS = 128
+WIDE_CASES = (
+    (dict(width=25, advanced_clears=True, penalise_height=True,
+          penalise_holes=True), (B_MAIN, 1000)),
+    (dict(width=32, high_scoring=True, penalise_height_increase=True,
+          penalise_holes_increase=True, lock_delay=2, step_reset=True),
+     (B_MAIN, 1000)),
+    (dict(width=40, reward_step=True, lock_delay=1), (B_MAIN, 1000)),
+    (dict(width=57, height=12, penalise_height=True), (B_MAIN, 1000)),
+    (dict(width=100, advanced_clears=True), (B_MAIN, 1000)),
+    (dict(width=1024, height=6, penalise_height_increase=True), (64,)),
+)
+# The JAX package's wide-board throughput configuration
+# (tests/test_perf_floor.py:85): the second main path.
+WIDE_MAIN = dict(width=32, height=20)
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_traces.json")
 
 
@@ -94,17 +112,18 @@ def _prefilled_state(cfg, B, rng, device):
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch.core import engine as E
-    from gym_simpletetris_tpu_torch.core.state import init_state
+    from gym_simpletetris_tpu_torch.core.state import init_state, rows_shape
     s = init_state(cfg, B, int(rng.randint(0, 2 ** 31)), device)
     s, _ = E.engine_clear(cfg, s, injected_r=torch.as_tensor(
         rng.randint(1, 36, B), device=device))
-    H = cfg.height
-    rows = np.zeros((H, B), np.uint32)
+    H, nw = cfg.height, cfg.num_words
+    rows = np.zeros((H, nw, B), np.uint32)
     depth = rng.randint(0, H // 2 + 1, B)
     for b in range(B):
         for y in range(H - depth[b], H):
-            hole = np.uint32(1 << (4 + rng.randint(0, cfg.width)))
-            rows[y, b] = np.uint32(cfg.valid_mask) & ~hole
+            full = cfg.valid_mask & ~(1 << (4 + rng.randint(0, cfg.width)))
+            rows[y, :, b] = [(full >> (32 * w)) & 0xFFFFFFFF for w in range(nw)]
+    rows = rows.reshape(rows_shape(cfg, B))
     return s.replace(rows=torch.from_numpy(rows.view(np.int32)).to(device))
 
 
@@ -118,7 +137,10 @@ def _diff(a, b):
     return (ai != bi).any(), (ai - bi).abs().max().to(torch.float32)
 
 
-def phase_step_kernel():
+def _check_step_kernel(cases, steps, seed0):
+    """Each (flags, batch sizes) case: ``steps`` steps of the step kernel and
+    of the plain step from the same prefilled state, every field compared.
+    Returns (max_abs_err, comparisons, {(cfg, B): last emitted rows})."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
@@ -127,16 +149,16 @@ def phase_step_kernel():
     from gym_simpletetris_tpu_torch.core.state import FIELDS
     dev = torch.device("cuda")
     max_err, n_cmp, last = 0.0, 0, {}
-    for fi, flags in enumerate(FLAG_SETS):
+    for fi, (flags, batches) in enumerate(cases):
         cfg = EnvConfig(**flags)
-        for B in (B_MAIN, 1000):
-            rng = np.random.RandomState(1000 * fi + B)
+        for B in batches:
+            rng = np.random.RandomState(seed0 + 1000 * fi + B)
             s_k = s_p = _prefilled_state(cfg, B, rng, dev)
             even = torch.arange(B, device=dev) % 2 == 0
             bad, errs = [], []
             n_done = torch.zeros((), dtype=torch.int64, device=dev)
             n_lines = torch.zeros((), dtype=torch.int64, device=dev)
-            for t in range(STEPS):
+            for t in range(steps):
                 a = torch.as_tensor(rng.randint(0, 7, B), device=dev)
                 r = torch.as_tensor(rng.randint(1, 36, B), device=dev)
                 o_k = E.engine_step(cfg, s_k, a, injected_r=r)
@@ -164,59 +186,115 @@ def phase_step_kernel():
                 raise PhaseError(
                     f"step kernel != plain: {flags} B={B} first at step {t}, "
                     f"field {names[f]}")
-            if cfg == EnvConfig():
-                last[B] = o_k.emitted_rows
-            log(f"  step kernel == plain: {flags or 'default'} B={B}: "
-                f"{STEPS} steps, {int(n_done)} done flags, {int(n_lines)} lines")
+            last[cfg, B] = o_k.emitted_rows
+            log(f"  step kernel == plain: {flags or 'default'} B={B} "
+                f"NW={cfg.num_words}: {steps} steps, {int(n_done)} done "
+                f"flags, {int(n_lines)} lines")
+    return max_err, n_cmp, last
+
+
+def phase_step_kernel():
+    from gym_simpletetris_tpu_torch import EnvConfig
+    cases = [(flags, (B_MAIN, 1000)) for flags in FLAG_SETS]
+    max_err, n_cmp, last = _check_step_kernel(cases, STEPS, 0)
     log(f"phase 2 step kernel: bitwise equal to the plain step in {n_cmp} "
         f"field comparisons (max_abs_err {max_err})")
+    return max_err, last[EnvConfig(), B_MAIN]
+
+
+def phase_wide_step_kernel():
+    max_err, n_cmp, last = _check_step_kernel(WIDE_CASES, WIDE_STEPS, 500)
+    log(f"phase 2w wide step kernel: bitwise equal to the plain step at "
+        f"widths {[f['width'] for f, _ in WIDE_CASES]} in {n_cmp} field "
+        f"comparisons (max_abs_err {max_err})")
     return max_err, last
 
 
-def phase_raster_kernels(boards):
+def _random_rows(cfg, B, rng):
+    """Random words in the state layout of ``cfg`` (guard bits set too)."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch.core.state import rows_shape
+    words = rng.randint(0, 2 ** 32, rows_shape(cfg, B),
+                        dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32)).to("cuda")
+
+
+def _check_raster(cases, rng):
+    """Each (cfg, rows, size, what): the raster kernel against the plain
+    raster, and three in-place folds of the raster-accumulate kernel into a
+    random accumulator (every pixel value wraps) against the plain folds.
+    Returns the max abs errors by kernel; raises on any difference."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch.ops import cuda_raster, raster
+    err = {"raster": 0.0, "raster_accumulate": 0.0}
+    for cfg, rows, size, what in cases:
+        got = cuda_raster.rasterize_rows(cfg, rows, size)
+        want = raster.rasterize_rows_plain(cfg, rows, size)
+        e = (got.int() - want.int()).abs().max().item()
+        err["raster"] = max(err["raster"], e)
+        if e:
+            raise PhaseError(f"raster kernel != plain: {what} at {size}px")
+        acc = torch.as_tensor(rng.randint(0, 256, got.shape, dtype=np.uint8),
+                              device=rows.device)
+        acc_k, acc_p = acc.clone(), acc.clone()
+        for _ in range(3):
+            cuda_raster.raster_accumulate(cfg, rows, acc_k, size)
+            raster.raster_accumulate_plain(cfg, rows, acc_p, size)
+        e = (acc_k.int() - acc_p.int()).abs().max().item()
+        err["raster_accumulate"] = max(err["raster_accumulate"], e)
+        if e:
+            raise PhaseError(
+                f"raster-accumulate kernel != plain: {what} at {size}px")
+    return err
+
+
+def phase_raster_kernels(board_rows):
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.ops import cuda_raster, raster
-    dev = torch.device("cuda")
     rng = np.random.RandomState(7)
-    err = {"raster": 0.0, "raster_accumulate": 0.0}
-    cases = [(EnvConfig(), boards[B_MAIN], "phase-2 boards")]
+    sets = [(EnvConfig(), board_rows, "phase-2 boards")]
     for w, h in ((10, 20), (9, 12), (4, 5), (24, 20)):
         cfg = EnvConfig(width=w, height=h)
-        words = rng.randint(0, 2 ** 32, (h, B_MAIN), dtype=np.uint64)
-        rows = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
-        cases.append((cfg, rows, f"random {w}x{h}"))
-    for size in (84, 160):
-        for cfg, rows, what in cases:
-            if size != 84 and what != "phase-2 boards":
-                continue
-            got = cuda_raster.rasterize_rows(cfg, rows, size)
-            want = raster.rasterize_rows_plain(cfg, rows, size)
-            e = (got.int() - want.int()).abs().max().item()
-            err["raster"] = max(err["raster"], e)
-            if e:
-                raise PhaseError(f"raster kernel != plain: {what} at {size}px")
-            acc = torch.as_tensor(rng.randint(0, 256, got.shape, dtype=np.uint8),
-                                  device=dev)
-            acc_k, acc_p = acc.clone(), acc.clone()
-            for _ in range(3):    # three folds: every pixel value wraps
-                cuda_raster.raster_accumulate(cfg, rows, acc_k, size)
-                raster.raster_accumulate_plain(cfg, rows, acc_p, size)
-            e = (acc_k.int() - acc_p.int()).abs().max().item()
-            err["raster_accumulate"] = max(err["raster_accumulate"], e)
-            if e:
-                raise PhaseError(
-                    f"raster-accumulate kernel != plain: {what} at {size}px")
+        sets.append((cfg, _random_rows(cfg, B_MAIN, rng), f"random {w}x{h}"))
+    err = _check_raster([(cfg, rows, 84, what) for cfg, rows, what in sets]
+                        + [(EnvConfig(), board_rows, 160, "phase-2 boards")],
+                        rng)
     # an odd batch whose image bytes do not end on a word
     cfg = EnvConfig(width=4, height=5)
-    rows = cases[3][1][:, :3].contiguous()
+    rows = _random_rows(cfg, 3, rng)
     got = cuda_raster.rasterize_rows(cfg, rows, 83)
     if not torch.equal(got, raster.rasterize_rows_plain(cfg, rows, 83)):
         raise PhaseError("raster kernel != plain at B=3, 83 px")
     log(f"phase 3 raster kernels: bitwise equal to the plain raster and "
-        f"raster-accumulate on {len(cases)} board sets at B={B_MAIN}, 84 px "
+        f"raster-accumulate on {len(sets)} board sets at B={B_MAIN}, 84 px "
         f"(and 160 px on the phase-2 boards)")
+    return err
+
+
+def phase_wide_raster_kernels(wide_boards):
+    """Kernels B and C on word-form rows: the wide step phase's boards and
+    random words at 84 px (an image fits up to 41 columns there), and the
+    render-fuzz wide geometries w40/h26 and w57/h6 at 512 px."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch import EnvConfig
+    rng = np.random.RandomState(8)
+    cases = [(cfg, rows, 84, f"phase-2w boards {cfg.width}x{cfg.height}")
+             for (cfg, B), rows in wide_boards.items()
+             if B == B_MAIN and cfg.width <= 41]
+    for w, h, size, B in ((25, 8, 84, B_MAIN), (41, 20, 84, B_MAIN),
+                          (40, 26, 84, B_MAIN), (40, 26, 512, 1024),
+                          (57, 6, 512, 1024), (33, 14, 160, 1000)):
+        cfg = EnvConfig(width=w, height=h)
+        cases.append((cfg, _random_rows(cfg, B, rng), size,
+                      f"random {w}x{h} B={B}"))
+    err = _check_raster(cases, rng)
+    log(f"phase 3w wide raster kernels: bitwise equal to the plain raster "
+        f"and raster-accumulate on {len(cases)} word-form board sets "
+        f"({', '.join(what + f' {size}px' for _, _, size, what in cases)})")
     return err
 
 
@@ -276,7 +354,11 @@ def _counters():
             "raster_accumulate": cuda_raster.raster_accumulate}
 
 
-def phase_main_path():
+def phase_main_path(board: dict, label: str):
+    """The main path on ``board`` (EnvConfig width / height): reset, 64
+    steps and a T-step rollout for each obs type, the rollout held to the
+    same steps taken one at a time. The kernel counts are set to 0 just
+    before and read just after; each kernel must have launched."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
@@ -285,7 +367,7 @@ def phase_main_path():
         fn.launches = 0
     envs = {}
     for o in ("ram", "grayscale", "rgb"):
-        cfg = EnvConfig(obs_type=o, auto_reset=True)
+        cfg = EnvConfig(obs_type=o, auto_reset=True, **board)
         env = TetrisVectorEnv(cfg, B_MAIN, device="cuda")
         rng = np.random.RandomState(11)
         obs, s = env.reset(0)
@@ -318,21 +400,23 @@ def phase_main_path():
         if not torch.isfinite(rew).all() or int(don.sum()) == 0:
             raise PhaseError(f"{o}: rewards not finite or no episode ended")
         envs[o] = (env, s, acts)
-        log(f"  main path {o}: reset + 64 steps + rollout T={STEPS} at "
-            f"B={B_MAIN}; rollout == step loop; {int(don.sum())} episodes ended, "
-            f"mean reward {float(rew.mean()):.4f}")
+        log(f"  main path {o} {cfg.width}x{cfg.height}: reset + 64 steps + "
+            f"rollout T={STEPS} at B={B_MAIN}; rollout == step loop; "
+            f"{int(don.sum())} episodes ended, mean reward "
+            f"{float(rew.mean()):.4f}")
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in _counters().items()}
     for k, n in launches.items():
         if n <= 0:
-            raise PhaseError(f"kernel {k} was not launched on the main path")
-    log(f"phase 5 main path: kernel launches {launches}")
+            raise PhaseError(f"kernel {k} was not launched on the main path "
+                             f"{board or 'default'}")
+    log(f"{label}: kernel launches {launches}")
     return launches, envs
 
 
-def phase_timing(envs):
+def phase_timing(envs, board: dict, label: str):
     """For information only: env-steps/s of the rollout and each kernel's time
-    beside its plain version's, at B = 4096."""
+    beside its plain version's, at B = 4096 on ``board``."""
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.core import engine as E
@@ -347,7 +431,7 @@ def phase_timing(envs):
             torch.cuda.synchronize()
             runs.append(B_MAIN * acts.shape[0] / (time.perf_counter() - t0))
         rates[o] = sorted(runs)
-    cfg = EnvConfig()
+    cfg = EnvConfig(**board)
     env, s, acts = envs["grayscale"]
     key, r = E.spawn_draw(s, None)
     a = acts[0].to(torch.int32).contiguous()
@@ -363,7 +447,8 @@ def phase_timing(envs):
             _sync_time(lambda: cuda_raster.raster_accumulate(cfg, rows, acc), 200),
             _sync_time(lambda: raster.raster_accumulate_plain(cfg, rows, acc), 50)),
     }
-    log(f"phase 6 timing (information only, B={B_MAIN}, T={STEPS}): "
+    log(f"{label} (information only, {cfg.width}x{cfg.height}, B={B_MAIN}, "
+        f"T={STEPS}): "
         "env-steps/s of the rollout, 3 runs sorted: "
         + ", ".join(f"{o} {[round(v) for v in r]}" for o, r in rates.items())
         + "; kernel ms "
@@ -384,32 +469,36 @@ def main() -> int:
     try:
         _import_port()
         card = phase_device()
-        step_err, boards = phase_step_kernel()
-        raster_err = phase_raster_kernels(boards)
+        step_err, board_rows = phase_step_kernel()
+        raster_err = phase_raster_kernels(board_rows)
+        wide_step_err, wide_boards = phase_wide_step_kernel()
+        wide_raster_err = phase_wide_raster_kernels(wide_boards)
         phase_golden()
-        launches, envs = phase_main_path()
-        rates, ms = phase_timing(envs)
+        launches, envs = phase_main_path({}, "phase 5 main path")
+        wide_launches, wide_envs = phase_main_path(
+            WIDE_MAIN, "phase 5w wide main path")
+        _, ms = phase_timing(envs, {}, "phase 6 timing")
+        _, wide_ms = phase_timing(wide_envs, WIDE_MAIN, "phase 6w wide timing")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     pkg = "gym_simpletetris_tpu_torch/csrc/"
-    kernels = [
-        dict(name="step", route="cuda", source=pkg + "step.cu",
-             replaces="gym_simpletetris_tpu/ops/pallas_step.py:99",
-             launches=launches["step"], max_abs_err=step_err,
-             ms=ms["step"][0], plain_ms=ms["step"][1]),
-        dict(name="raster", route="cuda", source=pkg + "raster.cu",
-             replaces="gym_simpletetris_tpu/ops/pallas_raster.py:38",
-             launches=launches["raster"], max_abs_err=raster_err["raster"],
-             ms=ms["raster"][0], plain_ms=ms["raster"][1]),
-        dict(name="raster_accumulate", route="cuda", source=pkg + "raster.cu",
-             replaces="gym_simpletetris_tpu/ops/pallas_raster.py:151",
-             launches=launches["raster_accumulate"],
-             max_abs_err=raster_err["raster_accumulate"],
-             ms=ms["raster_accumulate"][0], plain_ms=ms["raster_accumulate"][1]),
-    ]
+    kernels = []
+    for suffix, n, err, t in (
+            ("", launches, dict(raster_err, step=step_err), ms),
+            ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),
+             wide_ms)):
+        for name, src, replaces in (
+                ("step", "step.cu", "pallas_step.py:99"),
+                ("raster", "raster.cu", "pallas_raster.py:38"),
+                ("raster_accumulate", "raster.cu", "pallas_raster.py:151")):
+            kernels.append(dict(
+                name=name + suffix, route="cuda", source=pkg + src,
+                replaces="gym_simpletetris_tpu/ops/" + replaces,
+                launches=n[name], max_abs_err=err[name], ms=t[name][0],
+                plain_ms=t[name][1]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

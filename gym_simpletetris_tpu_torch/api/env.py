@@ -6,7 +6,10 @@ folds every step's observation into an accumulator. State and observations
 live on the env's device; on CUDA the step, the image observation and the
 image rollout's accumulation run the port's CUDA kernels
 (``ops/cuda_step.py``, ``ops/cuda_raster.py``), on the CPU their plain
-PyTorch versions. The JAX ``lax.scan`` is a Python loop here.
+PyTorch versions. The JAX ``lax.scan`` is a Python loop here. Board rows
+are ``[H, B]``, or ``[H, NW, B]`` for wide boards (width > 24); every
+per-env select broadcasts over the trailing batch axis, so both layouts go
+through the same code.
 
 Observations match the reference's ``TetrisEnv._observation``: ram is the
 board[x, y] 0/1 grid, grayscale/rgb the 84 x 84 raster, delivered as float32
@@ -40,7 +43,7 @@ def storage_obs_shape(cfg: EnvConfig) -> tuple:
 
 def build_observation_storage(cfg: EnvConfig,
                               emitted_rows: torch.Tensor) -> torch.Tensor:
-    """Packed rows int32[H, B] (piece burned in) -> the storage observation,
+    """Packed rows (piece burned in, either layout) -> the storage observation,
     always uint8: ram [B, W, H] 0/1; grayscale/rgb [B, 84, 84] in
     {0, 128, 190}. The delivered observation is a cast / view of it."""
     if cfg.obs_type == "ram":
@@ -65,7 +68,8 @@ def build_observation(cfg: EnvConfig, emitted_rows: torch.Tensor) -> torch.Tenso
 
 def _select_done(done: torch.Tensor, new: EnvState, old: EnvState) -> EnvState:
     """Per-env select over the state: batch is the last axis of every field
-    but the key, which is global (the advanced key is kept)."""
+    (rows [H, B] or [H, NW, B]) but the key, which is global (the advanced
+    key is kept)."""
     pick = lambda n, o: torch.where(done, n, o)
     return old.replace(
         rows=pick(new.rows, old.rows),

@@ -6,20 +6,24 @@ constructor kwargs of the reference's ``TetrisEnv`` plus ``auto_reset`` and
 in the port the device of the state picks the implementation — the hand-written
 CUDA kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
 
-This slice covers single-word boards only (width <= MAX_WIDTH_1W); wider boards
-(multi-word rows in the JAX package) are a later slice of the port.
+Boards up to MAX_WIDTH_1W columns pack a row into one 32-bit word ([H, B]);
+wider boards, up to MAX_WIDTH, split a row over ``num_words`` words
+([H, NW, B]), the JAX package's multi-word layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 OBS_TYPES = ("ram", "grayscale", "rgb")
 
 # Bit layout of a packed board row: column x lives at bit (x + XSHIFT). XSHIFT
 # guard bits below bit 0 and 4 above bit (width-1 + XSHIFT) absorb piece
 # offsets (|dx| <= 3, candidate anchors reach x = width), so anchor-shifted
-# masks never wrap. Widths up to MAX_WIDTH_1W pack into one 32-bit word a row.
+# masks never wrap. Widths up to MAX_WIDTH_1W pack into one 32-bit word a row;
+# wider rows hold global bit (x + XSHIFT) in word (x + XSHIFT) // 32.
 XSHIFT = 4
 MAX_WIDTH_1W = 32 - XSHIFT - 4
 MAX_WIDTH = 1024          # the JAX package's sanity bound
@@ -58,10 +62,6 @@ class EnvConfig:
             raise ValueError(
                 f"width={self.width} unsupported: requires 2 <= width <= "
                 f"{MAX_WIDTH}")
-        if self.width > MAX_WIDTH_1W:
-            raise NotImplementedError(
-                f"width={self.width} > {MAX_WIDTH_1W} needs multi-word rows, "
-                f"which the PyTorch port does not have yet (ROADMAP Queue 1)")
         if self.height < 2:
             raise ValueError(f"height={self.height} must be >= 2")
         if self.obs_type not in OBS_TYPES:
@@ -71,13 +71,22 @@ class EnvConfig:
 
     @property
     def num_words(self) -> int:
-        """32-bit words per packed board row (always 1 in this slice)."""
+        """32-bit words per packed board row: bits XSHIFT .. width-1+XSHIFT+4
+        (the guard for candidate anchors at x = width) must fit."""
         return (self.width + XSHIFT + 4 + 31) // 32
 
     @property
     def valid_mask(self) -> int:
-        """Mask of in-board column bits: [XSHIFT, XSHIFT + width)."""
+        """Mask of in-board column bits: [XSHIFT, XSHIFT + width), as a Python
+        int (wider than 32 bits for wide boards; see ``valid_words``)."""
         return ((1 << self.width) - 1) << XSHIFT
+
+    def valid_words(self) -> np.ndarray:
+        """int32[NW]: word w's slice of ``valid_mask``, uint32 bits (a full
+        word is -1), ready to meet int32 row tensors."""
+        return np.array([(self.valid_mask >> (32 * w)) & 0xFFFFFFFF
+                         for w in range(self.num_words)],
+                        dtype=np.uint32).view(np.int32)
 
     @property
     def spawn_x(self) -> int:

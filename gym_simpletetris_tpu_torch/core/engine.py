@@ -1,17 +1,26 @@
-"""Batched Tetris transition engine in plain PyTorch (single-word boards).
+"""Batched Tetris transition engine in plain PyTorch.
 
 A port of ``gym_simpletetris_tpu.core.engine``: the same functions, the same
-batch-minor ``[H, B]`` layout and the same bits. It is the CPU path of the
-port and the oracle that the CUDA step kernel (``csrc/step.cu``) is held to.
-The one-hot contractions the JAX engine needs on the TPU become plain
-indexing here.
+batch-minor layout and the same bits. It is the CPU path of the port and the
+oracle that the CUDA step kernel (``csrc/step.cu``) is held to. The one-hot
+contractions the JAX engine needs on the TPU become plain indexing here.
+
+Layout: board rows are ``[H, B]`` for single-word boards and ``[H, NW, B]``
+for wide ones (global bit ``x + XSHIFT`` in word ``(x + XSHIFT) // 32``), as
+in the state. Inside, everything is word form with the word axis just before
+the batch axis: rows ``[H, NW, B]``, piece masks ``[NROWS, NW, B]``. Every
+bit operation extends word by word; the one cross-word operation is the
+piece-mask placement (a two-word funnel shift, ``piece_masks``).
 
 ``engine_step`` dispatches on the state's device: a CUDA state goes to the
 step kernel (``ops/cuda_step.py``), a CPU state to the plain body below.
 ``engine_step_plain`` runs the plain body on any device.
 
 Words are int32 tensors holding uint32 bits. A right shift copies bit 31 down,
-so every ``>>`` is masked; masks reach bit 31 at width 24.
+so every ``>>`` of a board word is masked; masks reach bit 31 at width 24 and
+in the words of wide boards. Per-word column masks come from
+``EnvConfig.valid_words`` (int32, a full word is -1), never from the Python
+int ``valid_mask``, which is wider than 32 bits for wide boards.
 
 Behaviour pinned by the reference (see the JAX engine's docstring): cells with
 ``y < 0`` skip all collision checks, x-bounds included; gravity adds one soft
@@ -34,6 +43,7 @@ from .config import EnvConfig, XSHIFT
 from .pieces import ROWMASKS_FLAT, NROWS, DY_OFF
 from .state import EnvState
 from . import threefry
+from ..ops.bitops import unpack_cells
 
 _I32 = torch.int32
 
@@ -52,7 +62,7 @@ _MASK_TABLE = np.concatenate(
 
 class StepOut(NamedTuple):
     state: EnvState
-    emitted_rows: torch.Tensor  # int32[H, B]: board with active piece burned in
+    emitted_rows: torch.Tensor  # int32[H, B] / [H, NW, B]: piece burned in
     reward: torch.Tensor        # float32[B]
     done: torch.Tensor          # bool[B]
 
@@ -64,28 +74,57 @@ def _tables(device: torch.device):
             torch.tensor(_SCORES_TAB, dtype=_I32, device=device))
 
 
+@functools.lru_cache(maxsize=None)
+def _word_masks(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
+    """int32[NW, 1]: each word's in-board column bits, batch axis ready."""
+    return torch.as_tensor(cfg.valid_words(), device=device)[:, None]
+
+
 def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=_I32, device=device)
+
+
+def _to_words(rows: torch.Tensor) -> torch.Tensor:
+    """State-layout rows -> word form [H, NW, B]."""
+    return rows[:, None, :] if rows.dim() == 2 else rows
+
+
+def _from_words(cfg: EnvConfig, rows_w: torch.Tensor) -> torch.Tensor:
+    """Word form -> state layout ([H, B] when NW == 1)."""
+    return rows_w[:, 0, :] if cfg.num_words == 1 else rows_w
 
 
 # ------------------------------------------------------------------ piece masks
 
 def piece_masks(cfg: EnvConfig, piece: torch.Tensor, rot: torch.Tensor,
                 ax: torch.Tensor, rot_delta: int = 0) -> torch.Tensor:
-    """Absolute per-relative-row bitmasks: int32[NROWS, B]. Relative row k
-    covers board row ``ay + k - DY_OFF``; column x is bit ``x + XSHIFT``."""
+    """Absolute per-relative-row bitmasks, word form: int32[NROWS, NW, B].
+    Relative row k covers board row ``ay + k - DY_OFF``; global bit
+    ``x + XSHIFT`` is column x. The table's bits are ``dx + 3``, so the
+    anchor shift is ``s = ax + XSHIFT - 3``; word w takes the funnel-shifted
+    slice ``(m << (s - 32w)) | (m >> (32w - s))``, shifts out of range
+    masked (a single word takes ``m << s`` for 0 <= s < 32, else nothing)."""
     pr = piece * 4 + (rot + rot_delta) % 4
     pr = torch.where((pr >= 0) & (pr < 28), pr, 28)
     m = _tables(piece.device)[0][pr.long()].T                 # [NROWS, B]
     s = (ax + (XSHIFT - 3))[None, :]
-    ok = (s >= 0) & (s < 32)
-    return torch.where(ok, m << s.clamp(0, 31), 0)
+    if cfg.num_words == 1:
+        ok = (s >= 0) & (s < 32)
+        return torch.where(ok, m << s.clamp(0, 31), 0)[:, None, :]
+    words = []
+    for w in range(cfg.num_words):
+        d = s - 32 * w
+        lv = torch.where((d >= 0) & (d < 32), m << d.clamp(0, 31), 0)
+        # m < 128, so the int32 right shift brings no sign bits down
+        rv = torch.where((d < 0) & (d > -32), m >> (-d).clamp(0, 31), 0)
+        words.append(lv | rv)
+    return torch.stack(words, dim=1)
 
 
 def pad_rows(rows: torch.Tensor) -> torch.Tensor:
-    """Zero rows: DY_OFF above the board, NROWS - DY_OFF below."""
-    H, B = rows.shape
-    z = lambda n: rows.new_zeros((n, B))
+    """Zero rows (either layout): DY_OFF above the board, NROWS - DY_OFF
+    below."""
+    z = lambda n: rows.new_zeros((n,) + tuple(rows.shape[1:]))
     return torch.cat([z(DY_OFF), rows, z(NROWS - DY_OFF)], dim=0)
 
 
@@ -93,45 +132,50 @@ def pad_rows(rows: torch.Tensor) -> torch.Tensor:
 
 def extract_window(cfg: EnvConfig, rows: torch.Tensor,
                    ay: torch.Tensor) -> torch.Tensor:
-    """Board rows at y = ay-3 .. ay+3 per env, zeros outside: int32[NROWS, B]."""
+    """Board rows at y = ay-3 .. ay+3 per env, zeros outside, word form:
+    int32[NROWS, NW, B]. ``rows`` in either layout."""
     H = cfg.height
+    rows_w = _to_words(rows)
     y = ay[None, :] + (_iota(NROWS, rows.device)[:, None] - DY_OFF)
-    inb = (y >= 0) & (y < H)
-    win = torch.gather(rows, 0, y.clamp(0, H - 1).long())
-    return torch.where(inb, win, 0)
+    inb = ((y >= 0) & (y < H))[:, None, :]
+    idx = y.clamp(0, H - 1).long()[:, None, :].expand(-1, rows_w.shape[1], -1)
+    return torch.where(inb, torch.gather(rows_w, 0, idx), 0)
 
 
 def _collide_terms(cfg: EnvConfig, y: torch.Tensor, board: torch.Tensor,
                    m: torch.Tensor) -> torch.Tensor:
-    """``is_occupied`` for one mask row m at board row y, over its board word:
-    skip if y < 0 (before any x check), else collide on a cell outside the
-    columns, a non-empty row at y >= H, or an overlap."""
-    invalid = ~cfg.valid_mask
-    xo = (m & invalid) != 0
-    hit = (board & m) != 0
-    return (y >= 0) & (xo | ((y >= cfg.height) & (m != 0)) | hit)
+    """``is_occupied`` for mask rows m [..., NW, B] at board rows y [..., B]
+    over board words [..., NW, B]: skip if y < 0 (before any x check), else
+    collide on a cell outside the columns, a non-empty row at y >= H, or an
+    overlap."""
+    xo = ((m & ~_word_masks(cfg, m.device)) != 0).any(dim=-2)
+    nonempty = (m != 0).any(dim=-2)
+    hit = ((board & m) != 0).any(dim=-2)
+    return (y >= 0) & (xo | ((y >= cfg.height) & nonempty) | hit)
 
 
 def collide_window(cfg: EnvConfig, window: torch.Tensor, masks: torch.Tensor,
                    ay: torch.Tensor) -> torch.Tensor:
     """Collision of C candidate mask sets at one anchor row: bool[C, B].
-    window: int32[NROWS, B]; masks: int32[C, NROWS, B]; ay: int32[B]."""
+    window: int32[NROWS, NW, B]; masks: int32[C, NROWS, NW, B]; ay: int32[B]."""
     y = ay[None, None, :] + (_iota(NROWS, ay.device)[None, :, None] - DY_OFF)
     return _collide_terms(cfg, y, window[None], masks).any(dim=1)
 
 
 def collide_profile(cfg: EnvConfig, rows_pad: torch.Tensor,
                     masks: torch.Tensor) -> torch.Tensor:
-    """Collision of one mask set at every anchor row 0..H: bool[H+1, B].
+    """Collision of one mask set (int32[NROWS, NW, B]) at every anchor row
+    0..H: bool[H+1, B]. ``rows_pad``: padded rows, either layout.
     ``profile[H]`` is always True (the anchor cell at y = H is out of
     bounds), so drop distances are well defined."""
     H = cfg.height
+    rp = _to_words(rows_pad)
     yp = _iota(H + 1, masks.device)[:, None]
     coll = torch.zeros((H + 1, masks.shape[-1]), dtype=torch.bool,
                        device=masks.device)
     for k in range(NROWS):
-        coll |= _collide_terms(cfg, yp + (k - DY_OFF), rows_pad[k:k + H + 1],
-                               masks[k][None, :])
+        coll |= _collide_terms(cfg, yp + (k - DY_OFF), rp[k:k + H + 1],
+                               masks[k][None])
     return coll
 
 
@@ -143,50 +187,64 @@ def profile_at(prof: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return v & inb
 
 
-def place_bits(cfg: EnvConfig, masks: torch.Tensor,
-               ay: torch.Tensor) -> torch.Tensor:
-    """Burn a piece into an empty board: int32[H, B]. Cells outside the board
-    are dropped, like the reference's per-cell bounds check."""
-    rel = _iota(cfg.height, masks.device)[:, None] - ay[None, :] + DY_OFF
-    pb = torch.zeros((cfg.height, masks.shape[-1]), dtype=_I32,
+def _place_bits_w(cfg: EnvConfig, masks: torch.Tensor,
+                  ay: torch.Tensor) -> torch.Tensor:
+    """Burn a piece into an empty board, word form: int32[H, NW, B]. Cells
+    outside the board are dropped, like the reference's per-cell bounds
+    check."""
+    rel = (_iota(cfg.height, masks.device)[:, None] - ay[None, :]
+           + DY_OFF)[:, None, :]                              # [H, 1, B]
+    valid = _word_masks(cfg, masks.device)
+    pb = torch.zeros((cfg.height,) + tuple(masks.shape[1:]), dtype=_I32,
                      device=masks.device)
     for k in range(NROWS):
-        pb |= torch.where(rel == k, masks[k][None, :] & cfg.valid_mask, 0)
+        pb |= torch.where(rel == k, (masks[k] & valid)[None], 0)
     return pb
+
+
+def place_bits(cfg: EnvConfig, masks: torch.Tensor,
+               ay: torch.Tensor) -> torch.Tensor:
+    """``_place_bits_w`` in the state layout ([H, B] when NW == 1)."""
+    return _from_words(cfg, _place_bits_w(cfg, masks, ay))
 
 
 # ---------------------------------------------------------------- board queries
 
-def _cells(cfg: EnvConfig, rows: torch.Tensor) -> torch.Tensor:
-    """int32[H, B] -> 0/1 int32[H, W, B]."""
-    sh = (_iota(cfg.width, rows.device) + XSHIFT)[None, :, None]
-    return (rows[:, None, :] >> sh) & 1
-
-
 def count_holes(cfg: EnvConfig, rows: torch.Tensor) -> torch.Tensor:
-    """Empty cells with a filled cell anywhere above them: int32[B]."""
-    cells = _cells(cfg, rows)
+    """Empty cells with a filled cell anywhere above them: int32[B]. The
+    prefix OR is per column, so it runs on the unpacked cells."""
+    cells = unpack_cells(cfg, rows, dtype=_I32)               # [H, W, B]
     above = torch.cummax(cells, dim=0).values
     return ((1 - cells) & above).sum(dim=(0, 1)).to(_I32)
 
 
 def nonempty_rows(cfg: EnvConfig, rows: torch.Tensor) -> torch.Tensor:
     """Count of rows with any filled cell (the reference's "height")."""
-    return ((rows & cfg.valid_mask) != 0).sum(dim=0).to(_I32)
+    rows_w = _to_words(rows)
+    return ((rows_w & _word_masks(cfg, rows.device)) != 0).any(dim=1) \
+        .sum(dim=0).to(_I32)
+
+
+def _clear_lines_w(cfg: EnvConfig, rows_w: torch.Tensor):
+    """Full-row removal with stable downward compaction, word form: each kept
+    row i lands at ``i + (#full rows below i)``; a row is full when every
+    word holds all its in-board bits. Returns (rows, n_full int32[B])."""
+    H, NW, B = rows_w.shape
+    valid = _word_masks(cfg, rows_w.device)
+    full = ((rows_w & valid) == valid).all(dim=1)             # [H, B]
+    n_full = full.sum(dim=0).to(_I32)
+    below = n_full[None, :] - torch.cumsum(full.to(_I32), dim=0)
+    dest = _iota(H, rows_w.device)[:, None] + below
+    dest = torch.where(full, H, dest)                         # full rows -> spill
+    idx = dest.long()[:, None, :].expand(-1, NW, -1)
+    out = rows_w.new_zeros((H + 1, NW, B)).scatter(0, idx, rows_w)
+    return out[:H], n_full
 
 
 def clear_lines(cfg: EnvConfig, rows: torch.Tensor):
-    """Full-row removal with stable downward compaction: each kept row i
-    lands at ``i + (#full rows below i)``. Returns (rows, n_full int32[B])."""
-    H, B = rows.shape
-    valid = cfg.valid_mask
-    full = (rows & valid) == valid
-    n_full = full.sum(dim=0).to(_I32)
-    below = n_full[None, :] - torch.cumsum(full.to(_I32), dim=0)
-    dest = _iota(H, rows.device)[:, None] + below
-    dest = torch.where(full, H, dest)                         # full rows -> spill
-    out = rows.new_zeros((H + 1, B)).scatter(0, dest.long(), rows)
-    return out[:H], n_full
+    """``_clear_lines_w`` in the state layout."""
+    out, n_full = _clear_lines_w(cfg, _to_words(rows))
+    return _from_words(cfg, out), n_full
 
 
 # ---------------------------------------------------------------------- sampler
@@ -238,7 +296,7 @@ def transition_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     H = cfg.height
     piece, rot, ax, ay, lock = (state.piece, state.rot, state.ax, state.ay,
                                 state.lock)
-    rows = state.rows
+    rows = _to_words(state.rows)                              # [H, NW, B]
     action = action.to(_I32)
     dev = rows.device
 
@@ -272,11 +330,11 @@ def transition_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     locked = resting & (lock1 == 0)
 
     # lock: burn piece, clear lines, score, death, penalties
-    rows_locked = rows | torch.where(locked[None, :],
-                                     place_bits(cfg, masks1, ay2), 0)
-    rows_cleared, n_full = clear_lines(cfg, rows_locked)
+    lk = locked[None, None, :]
+    rows_locked = rows | torch.where(lk, _place_bits_w(cfg, masks1, ay2), 0)
+    rows_cleared, n_full = _clear_lines_w(cfg, rows_locked)
     n_clear = torch.where(locked, n_full, 0)
-    rows_after = torch.where(locked[None, :], rows_cleared, rows)
+    rows_after = torch.where(lk, rows_cleared, rows)
 
     if cfg.advanced_clears:
         sc = torch.where(n_clear <= 4,
@@ -290,7 +348,7 @@ def transition_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
         reward = reward + 100.0 * n_clear.to(torch.float32)
         score_inc = n_clear
 
-    death = locked & ((rows_after[0] & cfg.valid_mask) != 0)
+    death = locked & ((rows_after[0] & _word_masks(cfg, dev)) != 0).any(dim=0)
     alive_lock = locked & ~death
     holes_new = count_holes(cfg, rows_after)
     f32 = lambda c, v: torch.where(c, v, 0).to(torch.float32)
@@ -320,17 +378,18 @@ def transition_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     counts_next = state.shape_counts + (alive_lock[None, :] & spawn_oh).to(_I32)
 
     # emit: burn piece, copy, erase (the spawn-overlap and death erase quirks)
-    pb_emit = place_bits(cfg, piece_masks(cfg, piece_next, rot_next, ax_next),
-                         ay_next)
+    pb_emit = _place_bits_w(
+        cfg, piece_masks(cfg, piece_next, rot_next, ax_next), ay_next)
     new_state = state.replace(
-        rows=rows_after & ~pb_emit, piece=piece_next, rot=rot_next,
+        rows=_from_words(cfg, rows_after & ~pb_emit), piece=piece_next, rot=rot_next,
         ax=ax_next, ay=ay_next, lock=lock1, time=state.time + 1,
         score=state.score + torch.where(locked, score_inc, 0),
         holes=torch.where(locked, holes_new, state.holes),
         lines_cleared=state.lines_cleared + n_clear,
         piece_height=piece_height_next, deaths=state.deaths + death.to(_I32),
         shape_counts=counts_next, key=key)
-    return StepOut(new_state, rows_after | pb_emit, reward, death)
+    return StepOut(new_state, _from_words(cfg, rows_after | pb_emit), reward,
+                   death)
 
 
 def engine_step_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,

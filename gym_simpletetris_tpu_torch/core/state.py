@@ -1,7 +1,9 @@
 """Batched environment state: a dataclass of tensors (PyTorch port).
 
 The same 14 fields and the same batch-minor layout as the JAX package's
-``EnvState``: board rows ``[H, B]`` with column x at bit ``x + XSHIFT``, one
+``EnvState``: board rows ``[H, B]`` with column x at bit ``x + XSHIFT``
+(``[H, NW, B]`` for wide boards, bit ``x + XSHIFT`` of the row in word
+``(x + XSHIFT) // 32``), one
 entry per env for the scalars, ``[7, B]`` shape counts, and the engine's
 threefry key as 2 words. The uint32 words of the JAX state (rows, key) are
 held as int32 tensors with the same bits: torch's uint32 lacks shifts and
@@ -28,7 +30,7 @@ _UINT32_FIELDS = ("rows", "key")
 
 @dataclasses.dataclass
 class EnvState:
-    rows: torch.Tensor          # int32[H, B] (uint32 bits)
+    rows: torch.Tensor          # int32[H, B] or [H, NW, B] (uint32 bits)
     piece: torch.Tensor         # int32[B] in [0, 7)
     rot: torch.Tensor           # int32[B] in [0, 4)
     ax: torch.Tensor            # int32[B]
@@ -77,6 +79,13 @@ def _key_tensor(key, device) -> torch.Tensor:
     return torch.from_numpy(words.view(np.int32).copy()).to(device)
 
 
+def rows_shape(config: EnvConfig, batch_size: int) -> tuple:
+    """Shape of the board rows: [H, B] for single-word boards, [H, NW, B]
+    for wide ones (the JAX state's layout)."""
+    nw = config.num_words
+    return (config.height,) + ((nw,) if nw > 1 else ()) + (batch_size,)
+
+
 def init_state(config: EnvConfig, batch_size: int, key,
                device="cpu") -> EnvState:
     """Fresh-engine state (TetrisEngine.__init__): time and score start at -1,
@@ -86,7 +95,7 @@ def init_state(config: EnvConfig, batch_size: int, key,
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
     m1 = lambda: torch.full((b,), -1, dtype=torch.int32, device=device)
     return EnvState(
-        rows=z(config.height, b), piece=z(b), rot=z(b), ax=z(b), ay=z(b),
+        rows=z(*rows_shape(config, b)), piece=z(b), rot=z(b), ax=z(b), ay=z(b),
         lock=z(b), time=m1(), score=m1(), holes=z(b), lines_cleared=z(b),
         piece_height=z(b), deaths=z(b), shape_counts=z(7, b),
         key=_key_tensor(key, device))

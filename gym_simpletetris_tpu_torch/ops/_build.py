@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source in ``csrc/`` for ``sm_90a`` into
-one shared library with a plain C interface, which ``ctypes`` loads. The
+At first use, ``nvcc`` compiles every source in ``csrc/`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads. The
 library goes into ``_build/`` inside this package (listed in ``.gitignore``),
 named by a hash of the sources and the flags, so a changed source builds anew
 and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed build
@@ -23,8 +24,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 
 def _nvcc() -> str:
@@ -47,11 +49,17 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtetris_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _check(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {returncode}:\n"
+                           f"{' '.join(cmd)}\n{log}")
 
 
 def build() -> dict:
@@ -62,18 +70,31 @@ def build() -> dict:
     if path.exists():
         return {"path": path, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = path.with_name(f"{path.name}.{pid}.tmp")
+    objs = [path.with_name(f"{path.stem}.{src.stem}.{pid}.o")
+            for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)    # atomic: a concurrent build loses nothing
-    return {"path": path, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            _check(cmd, proc.returncode, log)
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        _check(link, proc.returncode, proc.stdout)
+        os.replace(tmp, path)    # atomic: a concurrent build loses nothing
+    finally:
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
+    return {"path": path, "seconds": time.perf_counter() - t0,
+            "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,8 +102,8 @@ def load_library() -> ctypes.CDLL:
     """The kernels' library, built if needed, with its C entry points typed."""
     lib = ctypes.CDLL(str(build()["path"]))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tetris_step_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, vp]
+    lib.tetris_step_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.tetris_step_launch.restype = i
-    lib.tetris_raster_launch.argtypes = [vp, i, vp, vp, i, vp, i, i, vp]
+    lib.tetris_raster_launch.argtypes = [vp, i, i, vp, vp, i, vp, i, i, vp]
     lib.tetris_raster_launch.restype = i
     return lib

@@ -11,8 +11,9 @@ Two wrappers over one kernel:
   ``acc`` to its output instead).
 
 A CPU tensor goes to the plain versions in ``ops/raster.py``, a CUDA tensor
-to the kernel, anything else raises. Each wrapper's ``launches`` counts its
-kernel launches.
+to the kernel, anything else raises. Rows are [H, B] for single-word boards
+and [H, NW, B] for wide ones, at every width the geometry admits. Each
+wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import EnvConfig
+from ..core.state import rows_shape
 from .cuda_step import check_tensor
 from .raster import (device_axis_maps, rasterize_rows_plain,
                      raster_accumulate_plain)
@@ -29,7 +31,7 @@ _MAX_SIZE = 4096   # the pixel maps (2 * size int32) live in shared memory
 
 def rasterize_rows(cfg: EnvConfig, rows: torch.Tensor,
                    size: int = 84) -> torch.Tensor:
-    """Packed rows int32[H, B] -> uint8[B, size, size]."""
+    """Packed rows int32[H, B] or [H, NW, B] -> uint8[B, size, size]."""
     if rows.device.type == "cpu":
         return rasterize_rows_plain(cfg, rows, size)
     if rows.device.type != "cuda":
@@ -63,10 +65,10 @@ def _launch(cfg: EnvConfig, rows: torch.Tensor, out: torch.Tensor, size: int,
             accumulate: bool) -> None:
     from ._build import load_library
     dev = rows.device
-    H, B = cfg.height, rows.shape[-1]
+    H, NW, B = cfg.height, cfg.num_words, rows.shape[-1]
     if not 0 < size <= _MAX_SIZE:
         raise ValueError(f"size={size} outside (0, {_MAX_SIZE}]")
-    check_tensor("rows", rows, (H, B), torch.int32, dev)
+    check_tensor("rows", rows, rows_shape(cfg, B), torch.int32, dev)
     check_tensor("acc" if accumulate else "out", out, (B, size, size),
                  torch.uint8, dev)
     if out.data_ptr() % 4:
@@ -74,7 +76,7 @@ def _launch(cfg: EnvConfig, rows: torch.Tensor, out: torch.Tensor, size: int,
     a0, a1 = device_axis_maps(H, cfg.width, size, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load_library().tetris_raster_launch(
-        rows.data_ptr(), B, a0.data_ptr(), a1.data_ptr(), size,
+        rows.data_ptr(), NW, B, a0.data_ptr(), a1.data_ptr(), size,
         out.data_ptr(), int(accumulate),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)

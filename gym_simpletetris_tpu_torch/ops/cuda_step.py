@@ -5,7 +5,9 @@ advanced key (``core.engine.spawn_draw`` makes both outside the kernel, so
 injected and threefry draws go through one kernel). A CPU state goes to
 ``core.engine.transition_plain``; a CUDA state launches the kernel, which
 replaces the Pallas TPU kernel ``gym_simpletetris_tpu/ops/pallas_step.py``;
-any other device raises. ``step.launches`` counts kernel launches.
+any other device raises. ``step.launches`` counts kernel launches. One
+kernel serves every width: rows are [H, B] for single-word boards and
+[H, NW, B] for wide ones, and the kernel takes NW.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ..core.config import EnvConfig
 from ..core.engine import StepOut, transition_plain
-from ..core.state import EnvState, SCALAR_FIELDS
+from ..core.state import EnvState, SCALAR_FIELDS, rows_shape
 
 _FLAGS = ("reward_step", "penalise_height", "penalise_height_increase",
           "advanced_clears", "high_scoring", "penalise_holes",
@@ -58,9 +60,10 @@ def _launch(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
             r_draw: torch.Tensor, key: torch.Tensor) -> StepOut:
     from ._build import load_library
     dev = state.rows.device
-    H, B = cfg.height, state.batch_size
+    H, NW, B = cfg.height, cfg.num_words, state.batch_size
     i32 = torch.int32
-    check_tensor("rows", state.rows, (H, B), i32, dev)
+    shape = rows_shape(cfg, B)
+    check_tensor("rows", state.rows, shape, i32, dev)
     scalars = [getattr(state, f) for f in SCALAR_FIELDS]
     for f, t in zip(SCALAR_FIELDS, scalars):
         check_tensor(f, t, (B,), i32, dev)
@@ -68,10 +71,10 @@ def _launch(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     check_tensor("action", action, (B,), i32, dev)
     check_tensor("r_draw", r_draw, (B,), i32, dev)
 
-    rows = torch.empty((H, B), dtype=i32, device=dev)
+    rows = torch.empty(shape, dtype=i32, device=dev)
     scal = torch.empty((len(SCALAR_FIELDS), B), dtype=i32, device=dev)
     counts = torch.empty((7, B), dtype=i32, device=dev)
-    emitted = torch.empty((H, B), dtype=i32, device=dev)
+    emitted = torch.empty(shape, dtype=i32, device=dev)
     reward = torch.empty((B,), dtype=torch.float32, device=dev)
     done = torch.empty((B,), dtype=torch.bool, device=dev)
 
@@ -81,7 +84,7 @@ def _launch(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load_library().tetris_step_launch(
-        in_ptrs, out_ptrs, H, B, cfg.width, cfg.lock_modulus, cfg.spawn_x,
+        in_ptrs, out_ptrs, H, NW, B, cfg.width, cfg.lock_modulus, cfg.spawn_x,
         config_flags(cfg), dev.index if dev.index is not None
         else torch.cuda.current_device(), stream)
     if err != 0:

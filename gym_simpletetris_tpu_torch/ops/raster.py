@@ -105,7 +105,9 @@ def device_axis_maps(d0: int, d1: int, size: int, device: torch.device):
 
 def rasterize_rows_plain(cfg: EnvConfig, rows: torch.Tensor,
                          size: int = 84) -> torch.Tensor:
-    """Packed rows int32[H, B] -> uint8[B, size, size], plain PyTorch."""
+    """Packed rows int32[H, B] or [H, NW, B] -> uint8[B, size, size], plain
+    PyTorch. Raises ValueError where ``raster_geometry`` does (at 84 px,
+    boards wider or taller than 41 cells)."""
     a0, a1 = device_axis_maps(cfg.height, cfg.width, size, rows.device)
     cells = unpack_rows(cfg, rows, dtype=torch.uint8)         # [B, H, W]
     hit = cells[:, a0.clamp(min=0).long()][:, :, a1.clamp(min=0).long()]

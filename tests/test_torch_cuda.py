@@ -29,7 +29,12 @@ def dev():
 @pytest.mark.parametrize("flags", [
     dict(), dict(width=9, height=12, lock_delay=3, high_scoring=True,
                  penalise_holes_increase=True),
-    dict(width=24, advanced_clears=True, penalise_height_increase=True)])
+    dict(width=24, advanced_clears=True, penalise_height_increase=True),
+    dict(width=25, penalise_height=True, penalise_holes=True),
+    dict(width=32, advanced_clears=True, lock_delay=1, step_reset=True),
+    dict(width=57, height=12, penalise_height_increase=True),
+    dict(width=100, reward_step=True),
+    dict(width=1024, height=6, high_scoring=True)])
 def test_step_kernel_matches_plain(dev, flags):
     cfg = EnvConfig(**flags)
     B = 333                                      # a ragged tail block
@@ -54,11 +59,14 @@ def test_step_kernel_matches_plain(dev, flags):
 
 
 @pytest.mark.parametrize("w,h,size", [(10, 20, 84), (9, 12, 84), (24, 20, 84),
-                                      (10, 20, 160), (4, 5, 83)])
+                                      (10, 20, 160), (4, 5, 83), (25, 8, 84),
+                                      (32, 20, 84), (41, 20, 84),
+                                      (40, 26, 512), (57, 6, 512)])
 def test_raster_kernels_match_plain(dev, w, h, size):
     cfg = EnvConfig(width=w, height=h)
     rng = np.random.RandomState(w * h)
-    words = rng.randint(0, 2 ** 32, (h, 257), dtype=np.uint64).astype(np.uint32)
+    shape = (h, 257) if cfg.num_words == 1 else (h, cfg.num_words, 257)
+    words = rng.randint(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
     rows = torch.from_numpy(words.view(np.int32)).to(dev)
     img = cuda_raster.rasterize_rows(cfg, rows, size)
     assert torch.equal(img, raster.rasterize_rows_plain(cfg, rows, size))
@@ -79,12 +87,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     acc = torch.zeros((8, 84, 84), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="shape"):
         cuda_raster.raster_accumulate(cfg, rows, acc[:4])
+    wide = EnvConfig(width=32)                   # rows must be [H, NW, B]
+    with pytest.raises(ValueError, match="shape"):
+        cuda_raster.rasterize_rows(wide, rows)
+    s = init_state(wide, 8, 0, dev)
+    with pytest.raises(ValueError, match="shape"):
+        E.engine_step(wide, s.replace(rows=s.rows[:, 0]),
+                      torch.zeros(8, dtype=torch.int32, device=dev))
 
 
-def test_env_on_the_card_matches_the_cpu(dev):
+@pytest.mark.parametrize("width", [10, 32])
+def test_env_on_the_card_matches_the_cpu(dev, width):
     """The main path on CUDA (kernels) against the same path on the CPU."""
     for o in ("ram", "grayscale", "rgb"):
-        cfg = EnvConfig(obs_type=o, auto_reset=True)
+        cfg = EnvConfig(width=width, obs_type=o, auto_reset=True)
         envs = [TetrisVectorEnv(cfg, 64, device=d) for d in ("cpu", "cuda")]
         acts = np.random.RandomState(1).randint(0, 7, (40, 64))
         outs = []

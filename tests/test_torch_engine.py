@@ -60,6 +60,15 @@ def assert_out_equal(jo, to, msg=""):
                                   err_msg=msg)
 
 
+def word_rows(jcfg, ints):
+    """Python-int rows [H][B] (bit x + 4 is column x) -> the JAX state
+    layout: uint32 [H, B], or [H, NW, B] for wide boards."""
+    nw = jcfg.num_words
+    rows = np.array([[[(v >> (32 * w)) & 0xFFFFFFFF for v in row]
+                      for w in range(nw)] for row in ints], dtype=np.uint32)
+    return rows[:, 0] if nw == 1 else rows
+
+
 def prefilled_jax_state(jcfg, B, rng):
     """A cleared JAX state whose lower rows are full but for one hole each,
     so random play clears lines, scores and dies."""
@@ -67,12 +76,12 @@ def prefilled_jax_state(jcfg, B, rng):
     s, _ = JE.engine_clear(jcfg, s, injected_r=jnp.asarray(
         rng.randint(1, 36, B), jnp.int32))
     H = jcfg.height
-    rows = np.zeros((H, B), np.uint32)
+    rows = [[0] * B for _ in range(H)]
     for b in range(B):
         for y in range(H - rng.randint(0, H // 2 + 1), H):
             hole = 1 << (4 + rng.randint(0, jcfg.width))
-            rows[y, b] = jcfg.valid_mask & ~hole
-    return s.replace(rows=jnp.asarray(rows))
+            rows[y][b] = jcfg.valid_mask & ~hole
+    return s.replace(rows=jnp.asarray(word_rows(jcfg, rows)))
 
 
 @pytest.mark.parametrize("name", list(FLAG_SETS))
@@ -121,7 +130,7 @@ def line_clear_jax_state(jcfg, B, rng):
     H, W = jcfg.height, jcfg.width
     piece, rot = rng.randint(0, 7, B), rng.randint(0, 4, B)
     ax = np.zeros(B, np.int32)
-    rows = np.zeros((H, B), np.uint32)
+    rows = [[0] * B for _ in range(H)]
     for b in range(B):
         cells = OFFSETS[piece[b], rot[b]].astype(int)        # (dx, dy)
         ax[b] = rng.randint(-cells[:, 0].min(), W - cells[:, 0].max())
@@ -131,10 +140,10 @@ def line_clear_jax_state(jcfg, B, rng):
         for dx, dy in cells:
             fill[:ay_rest + dy + 1, ax[b] + dx] = False       # footprint + shaft
         for y in range(H):
-            rows[y, b] = sum(1 << (4 + x) for x in range(W) if fill[y, x])
+            rows[y][b] = sum(1 << (4 + x) for x in range(W) if fill[y, x])
     s = jax_init_state(jcfg, B, jax.random.PRNGKey(int(rng.randint(1 << 30))))
     i32 = lambda v: jnp.asarray(v, jnp.int32)
-    return s.replace(rows=jnp.asarray(rows), piece=i32(piece), rot=i32(rot),
+    return s.replace(rows=jnp.asarray(word_rows(jcfg, rows)), piece=i32(piece), rot=i32(rot),
                      ax=i32(ax), ay=i32(np.zeros(B)), time=i32(np.zeros(B)),
                      score=i32(np.zeros(B)))
 
@@ -246,14 +255,15 @@ def test_board_queries_match_jax():
 
 
 def test_piece_masks_match_jax():
-    """Every (piece, rotation, rotation step, anchor) the engine can form."""
+    """Every (piece, rotation, rotation step, anchor) the engine can form,
+    word form [NROWS, NW, B] as in the JAX engine."""
     cfg, jcfg = EnvConfig(width=24), JaxConfig(width=24)
     p, r, x = np.meshgrid(np.arange(7), np.arange(4), np.arange(-1, 26),
                           indexing="ij")
     p, r, x = (v.reshape(-1).astype(np.int32) for v in (p, r, x))
     for delta in (-1, 0, 1):
         want = np.asarray(JE.piece_masks(jcfg, jnp.asarray(p), jnp.asarray(r),
-                                         jnp.asarray(x), delta))[:, 0, :]
+                                         jnp.asarray(x), delta))
         got = E.piece_masks(cfg, torch.from_numpy(p), torch.from_numpy(r),
                             torch.from_numpy(x), delta)
         np.testing.assert_array_equal(got.numpy().view(np.uint32), want)

@@ -11,6 +11,7 @@ import pytest
 
 from gym_simpletetris_tpu.core import config as jax_config
 from gym_simpletetris_tpu.core import pieces as jax_pieces
+from gym_simpletetris_tpu.core.engine import _valid_words
 from gym_simpletetris_tpu.ops import raster as jax_raster
 from gym_simpletetris_tpu_torch.core import config, pieces
 from gym_simpletetris_tpu_torch.core.state import key_data
@@ -58,18 +59,22 @@ def test_step_kernel_flag_bits():
 
 @pytest.mark.parametrize("kw", [
     dict(), dict(width=9, height=12, lock_delay=3), dict(width=24, height=8),
-    dict(width=2, height=2, lock_delay=-1), dict(width=17, lock_delay=5)])
+    dict(width=2, height=2, lock_delay=-1), dict(width=17, lock_delay=5),
+    dict(width=25), dict(width=32, height=20), dict(width=56, height=10),
+    dict(width=57, height=6), dict(width=1024, height=3)])
 def test_config_constants_match_jax(kw):
     a, b = config.EnvConfig(**kw), jax_config.EnvConfig(**kw)
     for prop in ("num_words", "valid_mask", "spawn_x", "lock_modulus"):
         assert getattr(a, prop) == getattr(b, prop), prop
+    words = a.valid_words()
+    assert words.dtype == np.int32 and words.shape == (a.num_words,)
+    np.testing.assert_array_equal(words.view(np.uint32), _valid_words(b))
 
 
 def test_config_rejects():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        config.EnvConfig(width=25)
-    for kw in (dict(width=1), dict(height=1), dict(obs_type="rgba"),
-               dict(obs_dtype="float16")):
+    assert config.EnvConfig(width=25).num_words == 2      # wide boards exist
+    for kw in (dict(width=1), dict(width=1025), dict(height=1),
+               dict(obs_type="rgba"), dict(obs_dtype="float16")):
         with pytest.raises(ValueError):
             config.EnvConfig(**kw)
 
