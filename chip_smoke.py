@@ -9,9 +9,15 @@ nvcc, holds each kernel bitwise against its plain PyTorch version on the card
 golden reference traces through the CUDA path, drives the main path
 (``TetrisVectorEnv`` reset / step / rollout with auto_reset at B = 4096 for
 ram, grayscale and rgb) on the default 10 x 20 board and on the wide 32 x 20
-board, and times the kernels beside their plain versions. One line per
-phase; then a JSON line of the kernels, the card's name and power limit, and
-as the last line
+board, and times the kernels beside their plain versions. Then the trainer
+path: the lookahead heuristic (kernel A at 7 * B), the greedy evaluation of
+the line-clear PPO checkpoint (``artifacts/ppo_lineclear_params.npz``; it
+must clear at least 4 lines per episode), and PPO updates through
+``run_ppo`` for ram and grayscale, with their kernel launches counted; each
+is held bitwise to a run on the plain step and raster (heuristic and PPO
+collection whole, the evaluation's first 500 steps), and kernels A and B to
+their plain versions at the trainer's batch sizes and env flags. One line per phase; then a JSON line of the
+kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure, or no CUDA device, exits nonzero without that line. Imports
 nothing of JAX.
@@ -19,6 +25,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -456,6 +463,263 @@ def phase_timing(envs, board: dict, label: str):
     return rates, ms
 
 
+# ------------------------------------------------------------ trainer path
+
+TRAIN_B = 512
+HEUR_STEPS = 200
+EVAL_STEPS = 3000
+EVAL_CMP_STEPS = 500   # kernel against plain on the evaluation's path
+EVAL_JAX_CPU = 5.225     # lines/episode of the JAX package's CPU evaluation
+EVAL_FLOOR = 4.0
+PARAMS_NPZ = os.path.join(ROOT, "artifacts", "ppo_lineclear_params.npz")
+PPO_RAM = ["--num-envs", "1024", "--rollout-len", "64", "--minibatches", "8",
+           "--epochs", "2", "--shuffle-block", "64", "--updates", "3"]
+PPO_GRAY = ["--obs", "grayscale", "--num-envs", "256", "--rollout-len", "32",
+            "--minibatches", "4", "--updates", "1"]
+
+
+def _launches() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+@contextlib.contextmanager
+def _plain_path():
+    """The trainer path on the plain versions, for a comparison run: the env
+    step and raster of ``api.env`` and the heuristic's lookahead step."""
+    from gym_simpletetris_tpu_torch.api import env as api_env
+    from gym_simpletetris_tpu_torch.core import engine as E
+    from gym_simpletetris_tpu_torch.models import heuristic
+    from gym_simpletetris_tpu_torch.ops import raster
+    saved = E.engine_step, api_env.rasterize_rows, heuristic.engine_step
+    E.engine_step = heuristic.engine_step = E.engine_step_plain
+    api_env.rasterize_rows = raster.rasterize_rows_plain
+    try:
+        yield
+    finally:
+        E.engine_step, api_env.rasterize_rows, heuristic.engine_step = saved
+
+
+def _play(cfg, act, steps):
+    """``steps`` steps of ``act(obs, env_state)`` at B = TRAIN_B under
+    EpisodeStats from seed 0: (actions, rewards, dones stacked [T, B], final
+    stats)."""
+    import torch
+    from gym_simpletetris_tpu_torch import TetrisVectorEnv
+    from gym_simpletetris_tpu_torch.api.wrappers import EpisodeStats
+    env = TetrisVectorEnv(cfg, TRAIN_B, device="cuda")
+    es = EpisodeStats(env)
+    obs, st = es.reset(0)
+    acts, rews, dones = [], [], []
+    for _ in range(steps):
+        a = act(obs, st.env_state)
+        obs, st, r, d, _ = es.step(st, a)
+        acts.append(a)
+        rews.append(r)
+        dones.append(d)
+    torch.cuda.synchronize()
+    return torch.stack(acts), torch.stack(rews), torch.stack(dones), st
+
+
+def _same_play(what, kernel_run, plain_run):
+    """Actions, rewards and dones of two ``_play`` runs bitwise equal."""
+    import torch
+    for name, x, y in zip(("actions", "rewards", "dones"), kernel_run[:3],
+                          plain_run[:3]):
+        if not torch.equal(x, y):
+            t = int(torch.nonzero((x != y).any(dim=1))[0])
+            raise PhaseError(f"{what} with the kernels != with the plain "
+                             f"versions: {name} first differ at step {t}")
+
+
+def phase_heuristic():
+    """The lookahead policy's 7 * B engine step through kernel A, held
+    bitwise to the same policy with the plain step swapped in (lookahead and
+    env step). Returns the kernel run's launches."""
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.models.heuristic import make_heuristic_policy
+    cfg = EnvConfig(auto_reset=True, reward_step=True)
+    policy = make_heuristic_policy(cfg)
+    act = lambda obs, s: policy(s)
+    n0 = _launches()
+    t0 = time.perf_counter()
+    run = _play(cfg, act, HEUR_STEPS)
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    with _plain_path():
+        _same_play("heuristic", run, _play(cfg, act, HEUR_STEPS))
+    st = run[3]
+    eps = int(st.episodes.sum())
+    lines = int(st.total_lines.sum())
+    done = st.last_length[st.episodes > 0].float()
+    lengths = f"mean length {done.mean():.1f}" if eps else "none ended yet"
+    log(f"phase 7a heuristic: {HEUR_STEPS} steps at B={TRAIN_B} (lookahead "
+        f"B={7 * TRAIN_B}), actions/rewards/dones bitwise equal with kernel "
+        f"A and with the plain step; {eps} episodes ({lengths}), {lines} "
+        f"lines; {secs:.3f} s with the kernel")
+    return {k: n1[k] - n0[k] for k in n1}
+
+
+def phase_greedy_eval():
+    """The line-clear checkpoint in greedy play, as the JAX package's
+    evaluate CLI runs it: B = 512, 3000 steps, seed 0, ram, reward_step.
+    Then its first EVAL_CMP_STEPS steps again with the kernels and with the
+    plain versions, bitwise equal. Returns the evaluation's launches."""
+    import torch
+    from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
+    from gym_simpletetris_tpu_torch.train.evaluate import (
+        evaluate_policy, make_action_fn)
+    cfg = EnvConfig(obs_type="ram", auto_reset=True, reward_step=True)
+    env = TetrisVectorEnv(cfg, TRAIN_B, device="cuda")
+    fn = make_action_fn("ppo", cfg, TRAIN_B, PARAMS_NPZ, device="cuda")
+    torch.cuda.synchronize()
+    n0 = _launches()
+    t0 = time.perf_counter()
+    res = evaluate_policy(env, fn, EVAL_STEPS, 0)
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    lpe = res["lines_per_episode"]
+    log(f"phase 7b greedy eval of {os.path.relpath(PARAMS_NPZ, ROOT)}: "
+        f"{json.dumps(res)}; lines/episode {lpe} (JAX package on the CPU: "
+        f"{EVAL_JAX_CPU}); {secs:.2f} s, "
+        f"{TRAIN_B * EVAL_STEPS / secs:.0f} env-steps/s")
+    if lpe is None or lpe < EVAL_FLOOR:
+        raise PhaseError(f"greedy eval gave {lpe} lines/episode, under "
+                         f"{EVAL_FLOOR}")
+    run = _play(cfg, fn, EVAL_CMP_STEPS)
+    with _plain_path():
+        _same_play("greedy eval", run, _play(cfg, fn, EVAL_CMP_STEPS))
+    log(f"  greedy eval: its first {EVAL_CMP_STEPS} steps "
+        f"({int(run[2].sum())} dones) bitwise equal with kernel A and with "
+        "the plain step")
+    return {k: n1[k] - n0[k] for k in n1}
+
+
+def _run_ppo(args):
+    """``run_ppo.main`` on the card, its JSON lines captured (stdout keeps
+    to this script's lines). Returns (final state, metric lines)."""
+    import io
+    from gym_simpletetris_tpu_torch.train import run_ppo
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = run_ppo.main(args + ["--device", "cuda", "--seed", "0"])
+    return state, [json.loads(ln) for ln in buf.getvalue().splitlines()]
+
+
+def _check_ppo(label, args, n_updates):
+    """``run_ppo`` for ``n_updates`` and one more update timed in its two
+    halves (the launches of both counted), then that update's collection
+    again on the plain step and raster: the trajectory must be bitwise
+    equal."""
+    import math
+    import torch
+    from gym_simpletetris_tpu_torch.train import ppo, run_ppo
+    n0 = _launches()
+    state, lines = _run_ppo(args)
+    if len(lines) != n_updates:
+        raise PhaseError(f"{label}: {len(lines)} metric lines, want {n_updates}")
+    for rec in lines:
+        bad = [k for k, v in rec.items() if not math.isfinite(v)]
+        if bad:
+            raise PhaseError(f"{label}: non-finite metrics {bad} at update "
+                             f"{rec['update']}")
+        if not 0.0 < rec["entropy"] <= math.log(7) + 1e-3:
+            raise PhaseError(f"{label}: entropy {rec['entropy']} outside "
+                             "(0, ln 7]")
+    cfg = run_ppo.make_config(run_ppo.parse_args(args))
+    init_fn, update_fn, _ = ppo.make_ppo(cfg, "cuda")
+    s0 = init_fn(0)
+    moved = sum(float((state.params[k] - v).abs().sum())
+                for k, v in s0.params.items())
+    if not moved > 0:
+        raise PhaseError(f"{label}: the parameters did not move")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rollout = update_fn.collect(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    update_fn.learn(state, rollout)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n1 = _launches()
+    with _plain_path():
+        plain = update_fn.collect(state)
+    (env_k, obs_k, traj_k, _), (env_p, obs_p, traj_p, _) = rollout, plain
+    for k in ("obs", "action", "reward", "done", "lines"):
+        if not torch.equal(traj_k[k], traj_p[k]):
+            t = int(torch.nonzero((traj_k[k] != traj_p[k]).reshape(
+                cfg.rollout_len, -1).any(dim=1))[0])
+            raise PhaseError(f"{label}: collection with the kernels != with "
+                             f"the plain versions: {k} first differs at "
+                             f"step {t}")
+    if not (torch.equal(env_k.rows, env_p.rows) and torch.equal(obs_k, obs_p)):
+        raise PhaseError(f"{label}: final env state or observation differs "
+                         "with the plain versions")
+    walls = [rec["wall_s"] for rec in lines]
+    per_update = [b - a for a, b in zip([0.0] + walls, walls)]
+    steps = cfg.num_envs * cfg.rollout_len
+    return dict(per_update_s=per_update, collect_s=t1 - t0, learn_s=t2 - t1,
+                env_steps_per_s=steps / (t2 - t0), moved=moved,
+                dones=int(traj_k["done"].sum()), last=lines[-1],
+                launches={k: n1[k] - n0[k] for k in n1})
+
+
+def phase_ppo():
+    """PPO ram and grayscale through ``run_ppo``. Returns their launches."""
+    runs = (("7c ppo ram", PPO_RAM, 3), ("7d ppo grayscale", PPO_GRAY, 1))
+    launches = {}
+    for label, args, n in runs:
+        r = _check_ppo(label, args, n)
+        launches = {k: launches.get(k, 0) + v for k, v in r["launches"].items()}
+        last = r["last"]
+        log(f"phase {label}: metrics finite, entropy {last['entropy']:.4f}, "
+            f"params moved (sum |dp| {r['moved']:.4f}); run_ppo s/update "
+            f"{[round(x, 3) for x in r['per_update_s']]}; one more update: "
+            f"collect {r['collect_s']:.3f} s + learn {r['learn_s']:.3f} s, "
+            f"{r['env_steps_per_s']:.0f} env-steps/s; its collection "
+            f"({r['dones']} dones) bitwise equal on the plain step and "
+            f"raster; last line {json.dumps(last)}")
+    return launches
+
+
+def phase_trainer_kernels():
+    """Kernels A and B against their plain versions at the trainer path's
+    shapes and env flags: the step at B = 512 (evaluation), 1024 and 256
+    (PPO ram and grayscale), the raster of 10 x 20 rows at B = 256, 84 px.
+    Returns the max abs errors by kernel."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch import EnvConfig
+    eval_flags = dict(reward_step=True)
+    ppo_flags = dict(reward_step=True, penalise_holes=True)
+    step_err, n_cmp, last = _check_step_kernel(
+        [(eval_flags, (TRAIN_B,)), (ppo_flags, (1024, 256))], STEPS, 700)
+    rng = np.random.RandomState(9)
+    cfg = EnvConfig()
+    err = _check_raster(
+        [(cfg, last[EnvConfig(**ppo_flags), 256], 84, "ppo step boards"),
+         (cfg, _random_rows(cfg, 256, rng), 84, "random 10x20")], rng)
+    log(f"phase 7e trainer shapes: the step kernel bitwise equal to the plain "
+        f"step at B={TRAIN_B}, 1024, 256 in {n_cmp} field comparisons, the "
+        f"raster kernels at B=256, 84 px (max_abs_err step {step_err}, "
+        f"raster {err['raster']})")
+    return dict(err, step=step_err)
+
+
+def phase_trainer_path():
+    """Heuristic, greedy evaluation and PPO (ram and grayscale) on the card,
+    then the kernels at their shapes. Launch counts: from 0 before these
+    phases, summed over their kernel runs without the comparison runs;
+    step and raster must have launched."""
+    for fn in _counters().values():
+        fn.launches = 0
+    parts = (phase_heuristic(), phase_greedy_eval(), phase_ppo())
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    log(f"phase 7 trainer path: kernel launches {launches}")
+    for k in ("step", "raster"):
+        if launches[k] <= 0:
+            raise PhaseError(f"kernel {k} was not launched on the trainer path")
+    return phase_trainer_kernels()
+
+
 def main() -> int:
     try:
         import torch
@@ -479,6 +743,7 @@ def main() -> int:
             WIDE_MAIN, "phase 5w wide main path")
         _, ms = phase_timing(envs, {}, "phase 6 timing")
         _, wide_ms = phase_timing(wide_envs, WIDE_MAIN, "phase 6w wide timing")
+        trainer_err = phase_trainer_path()
     except Exception as e:   # the run's boundary: report and fail
         import traceback
         traceback.print_exc()
@@ -487,7 +752,8 @@ def main() -> int:
     pkg = "gym_simpletetris_tpu_torch/csrc/"
     kernels = []
     for suffix, n, err, t in (
-            ("", launches, dict(raster_err, step=step_err), ms),
+            ("", launches, {k: max(v, trainer_err.get(k, 0.0)) for k, v in
+                            dict(raster_err, step=step_err).items()}, ms),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),
              wide_ms)):
         for name, src, replaces in (

@@ -4,7 +4,10 @@ The batched SimpleTetris env on a torch device: a bit-packed engine, the
 84 x 84 grayscale/rgb raster and a rollout loop, with the same bits as the
 JAX package. On CUDA the step, the raster and the raster-accumulate run as
 hand-written kernels for Hopper (``csrc/``), built with nvcc at first use; on
-the CPU the same functions run in plain PyTorch.
+the CPU the same functions run in plain PyTorch. On top of the env: the
+wrappers (``api.wrappers``), the actor-critic and the lookahead heuristic
+(``models``), and the PPO trainer with its CLIs (``train.ppo``,
+``train.run_ppo``, ``train.evaluate``).
 
     >>> from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
     >>> env = TetrisVectorEnv(EnvConfig(obs_type="ram", auto_reset=True), 4096,

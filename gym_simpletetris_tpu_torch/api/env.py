@@ -187,6 +187,18 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
     return rollout
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device: cpu, or cuda where a card is present.
+    A CUDA request without a card raises; it never runs on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but "
+                           "torch.cuda.is_available() is false")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 class TetrisVectorEnv:
     """Batched SimpleTetris on a torch device.
 
@@ -199,13 +211,7 @@ class TetrisVectorEnv:
 
     def __init__(self, config: EnvConfig = EnvConfig(), batch_size: int = 1,
                  device="cpu"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TetrisVectorEnv(device='cuda') but torch.cuda.is_available() "
-                "is false")
-        if device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device}")
+        device = check_device(device)
         self.config = config
         self.batch_size = batch_size
         self.device = device

@@ -1,0 +1,215 @@
+"""Actor-critic networks for PPO (port of
+``gym_simpletetris_tpu.models.actor_critic``): float32 parameters, compute in
+``dtype`` (bfloat16 by default), float32 logits and value.
+
+Each layer rounds where jitted flax does on XLA. A Dense or Conv layer takes
+the product of ``dtype``-rounded operands, sums it in float32 and rounds it
+once to ``dtype`` (what XLA's CPU backend runs for a bf16 dot, and what a
+bf16 GEMM with float32 accumulation computes), then adds the bias in
+``dtype`` as a second op: ``F.linear`` / ``addmm`` add the bias before they
+round, which moves about half the bf16 logits by an ulp and flips greedy
+actions. The logits head keeps its bias sum in float32, as XLA does for
+``pi(z).astype(float32)`` under jit. With torch's own bf16 matmul the float32
+sum runs in another order; the greedy line-clear agent then takes another
+action about once in 10^5 decisions. The conv trunk takes NHWC input like
+the flax one, runs ``F.conv2d`` in NCHW, and flattens in NHWC order, so the
+``fc`` weight is the plain transpose of the flax kernel. A float32 network
+convolves in float32 on the card too, not in cuDNN's default TF32.
+
+``params_from_flax`` carries a flax parameter tree across. Fresh parameters
+follow flax's default initialisers (LeCun-normal truncated kernels, zero
+biases), drawn from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..core.engine import NUM_ACTIONS
+
+# flax's truncated-normal correction: the std of a unit normal cut at +-2
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: weight [out, in] (the flax kernel transposed)."""
+
+    def __init__(self, features_in: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(features, features_in))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, round_sum: bool = True) -> torch.Tensor:
+        """``round_sum=False`` adds the bias in float32 and returns float32."""
+        dt = self.dtype
+        y = (x.to(dt).float() @ self.weight.to(dt).float().T).to(dt)
+        if round_sum:
+            return y + self.bias.to(dt)
+        return y.float() + self.bias.to(dt).float()
+
+
+@contextlib.contextmanager
+def _ieee_conv():
+    """cuDNN convolutions in full float32 precision for the block."""
+    conv = torch.backends.cudnn.conv
+    saved = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = saved
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` with VALID padding on NCHW activations: weight OIHW
+    (the flax HWIO kernel permuted)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _lecun_normal_(self.weight, self.weight[0].numel(), gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x, w = x.to(dt).float(), self.weight.to(dt).float()
+        # cuDNN convolves float32 in TF32 unless told not to; bf16-valued
+        # operands are exact in TF32 and keep it
+        exact = _ieee_conv() if dt == torch.float32 else contextlib.nullcontext()
+        with exact:
+            y = F.conv2d(x, w, stride=self.stride).to(dt)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class ConvTrunk(nn.Module):
+    """Three VALID convs (32x8/4, 64x4/2, 64x3/1) on an 84 x 84 image."""
+
+    def __init__(self, in_channels: int = 1, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = Conv(in_channels, 32, 8, 4, dtype)
+        self.conv2 = Conv(32, 64, 4, 2, dtype)
+        self.conv3 = Conv(64, 64, 3, 1, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 3:
+            x = x[..., None]
+        x = (x.to(self.dtype) / 255.0).permute(0, 3, 1, 2)   # NHWC -> NCHW
+        for conv in (self.conv1, self.conv2, self.conv3):
+            x = F.relu(conv(x))
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+
+
+class MlpTrunk(nn.Module):
+    def __init__(self, features_in: int, hidden: Sequence[int] = (512, 256),
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        sizes = (features_in,) + tuple(hidden)
+        for i in range(len(hidden)):
+            self.add_module(f"dense{i}", Dense(sizes[i], sizes[i + 1], dtype))
+        self.hidden = tuple(hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1).to(self.dtype)
+        for i in range(len(self.hidden)):
+            x = F.relu(getattr(self, f"dense{i}")(x))
+        return x
+
+
+class ActorCritic(nn.Module):
+    """Shared trunk, separate policy-logits and value heads.
+
+    ``obs_shape`` is the per-env observation shape; ``obs_type`` picks the
+    trunk: conv for 84 x 84 images, MLP for ram boards. Returns
+    (logits float32[B, A], value float32[B]).
+    """
+
+    def __init__(self, obs_shape: Tuple[int, ...], obs_type: str = "ram",
+                 num_actions: int = NUM_ACTIONS, dtype=torch.bfloat16):
+        super().__init__()
+        self.obs_type = obs_type
+        self.dtype = dtype
+        if obs_type == "ram":
+            self.trunk = MlpTrunk(int(np.prod(obs_shape)), dtype=dtype)
+            z = self.trunk.hidden[-1]
+        else:
+            cin = obs_shape[-1] if len(obs_shape) == 3 else 1
+            self.trunk = ConvTrunk(cin, dtype=dtype)
+            side = obs_shape[0]
+            for k, s in ((8, 4), (4, 2), (3, 1)):
+                side = (side - k) // s + 1
+            self.fc = Dense(side * side * 64, 512, dtype)
+            z = 512
+        self.pi = Dense(z, num_actions, dtype)
+        self.v = Dense(z, 1, dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, (Dense, Conv)):
+                m.reset_parameters(gen)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = self.trunk(x)
+        if self.obs_type != "ram":
+            z = F.relu(self.fc(z))
+        # flax's ``pi(z).astype(float32)``: XLA keeps the bias sum in float32
+        # (excess precision, on by default) and rounds only the product
+        logits = self.pi(z, round_sum=False)
+        value = self.v(z)[:, 0]
+        return logits, value.float()
+
+
+def params_from_flax(tree) -> dict:
+    """A flax ActorCritic parameter tree (nested dicts of numpy arrays, with
+    or without the outer ``"params"`` key) -> a state_dict of float32 CPU
+    tensors for ``ActorCritic``. A Dense kernel [in, out] becomes a weight
+    [out, in], a Conv kernel HWIO an OIHW weight; the flax trunk module
+    (``MlpTrunk_0`` / ``ConvTrunk_0``) is ``trunk``."""
+    if "params" in tree:
+        tree = tree["params"]
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        a = np.asarray(node, dtype=np.float32)
+        mods = ["trunk" if p in ("MlpTrunk_0", "ConvTrunk_0") else p
+                for p in path[:-1]]
+        if path[-1] == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = "weight"
+        elif path[-1] == "bias":
+            name = "bias"
+        else:
+            raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+        out[".".join(mods + [name])] = torch.tensor(a)    # a copy
+
+    walk(tree, ())
+    return out

@@ -96,6 +96,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                       torch.zeros(8, dtype=torch.int32, device=dev))
 
 
+def test_heuristic_on_the_card_matches_the_cpu(dev):
+    """The lookahead policy (kernel A at 7 * B) against the CPU policy."""
+    from gym_simpletetris_tpu_torch.models.heuristic import make_heuristic_policy
+    cfg = EnvConfig(auto_reset=True, reward_step=True)
+    policy = make_heuristic_policy(cfg)
+    envs = [TetrisVectorEnv(cfg, 64, device=d) for d in ("cpu", "cuda")]
+    states = [env.reset(0)[1] for env in envs]
+    n = cuda_step.step.launches
+    for t in range(40):
+        acts = [policy(s) for s in states]
+        assert torch.equal(acts[0], acts[1].cpu()), t
+        states = [env.step(s, a)[1] for env, s, a in zip(envs, states, acts)]
+    assert cuda_step.step.launches == n + 80     # lookahead + env step
+
+
+def test_ppo_update_on_the_card_matches_the_cpu_collection(dev, monkeypatch):
+    """One float32 ram PPO update on each device from the same init: the
+    collected trajectory is the same (same draws, kernel-exact env, logits
+    an ulp apart at most: float32 matmuls run without TF32 by default), and
+    the metrics are finite and close."""
+    import functools
+    from gym_simpletetris_tpu_torch.models.actor_critic import ActorCritic
+    from gym_simpletetris_tpu_torch.train import ppo
+    monkeypatch.setattr(ppo, "ActorCritic",
+                        functools.partial(ActorCritic, dtype=torch.float32))
+    cfg = ppo.PPOConfig(env=EnvConfig(obs_type="ram", auto_reset=True,
+                                      reward_step=True, width=6, height=8),
+                        num_envs=32, rollout_len=8, num_minibatches=2)
+    runs = []
+    for d in ("cpu", "cuda"):
+        init_fn, update_fn, _ = ppo.make_ppo(cfg, d)
+        s = init_fn(1)
+        _, _, traj, _ = update_fn.collect(s)
+        s2, m = update_fn(s)
+        runs.append((traj, m))
+    (tc, mc), (tg, mg) = runs
+    for k in ("action", "done", "obs"):
+        assert torch.equal(tc[k], tg[k].cpu()), k
+    for k, v in mg.items():
+        assert torch.isfinite(v), k
+        assert abs(float(v) - float(mc[k])) <= 1e-2 * max(1.0, abs(float(mc[k]))), k
+
+
+def test_f32_conv_forward_on_the_card_matches_the_cpu(dev):
+    """The float32 grayscale actor-critic on the card against the CPU, within
+    relative 1e-5 of the row's largest |logit| (the tolerance of the CPU
+    test against flax): cuDNN's default TF32 would miss it by far."""
+    from gym_simpletetris_tpu_torch.models.actor_critic import ActorCritic
+    net = ActorCritic((84, 84), obs_type="grayscale", dtype=torch.float32)
+    net.reset_parameters(torch.Generator().manual_seed(5))
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.choice([0.0, 128.0, 190.0], size=(48, 84, 84))
+                         .astype(np.float32))
+    with torch.no_grad():
+        lc, vc = net(x)
+        lg, vg = (t.cpu() for t in net.to(dev)(x.to(dev)))
+    tol = 1e-5 * lc.abs().max(dim=1).values
+    assert ((lg - lc).abs() <= tol[:, None]).all()
+    assert ((vg - vc).abs() <= 1e-5 * vc.abs().max()).all()
+
+
 @pytest.mark.parametrize("width", [10, 32])
 def test_env_on_the_card_matches_the_cpu(dev, width):
     """The main path on CUDA (kernels) against the same path on the CPU."""

@@ -27,8 +27,19 @@ def test_import_leaves_jax_out():
         "import gym_simpletetris_tpu_torch.ops.cuda_step, "
         "gym_simpletetris_tpu_torch.ops.cuda_raster, "
         "gym_simpletetris_tpu_torch.ops._build\n"
+        "import gym_simpletetris_tpu_torch.api.wrappers, "
+        "gym_simpletetris_tpu_torch.models.actor_critic, "
+        "gym_simpletetris_tpu_torch.models.heuristic, "
+        "gym_simpletetris_tpu_torch.train.ppo, "
+        "gym_simpletetris_tpu_torch.train.run_ppo, "
+        "gym_simpletetris_tpu_torch.train.evaluate, "
+        "gym_simpletetris_tpu_torch.utils.checkpoint\n"
+        "from gym_simpletetris_tpu_torch.utils.checkpoint import "
+        "load_flax_params\n"
+        "load_flax_params('artifacts/ppo_lineclear_params.npz')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'gym_simpletetris_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'gym_simpletetris_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,6 +1,6 @@
 """The port's plain-PyTorch threefry2x32 stream equals jax.random bit for bit
-(threefry keys, jax_threefry_partitionable on): split, bits and the engine's
-spawn draws."""
+(threefry keys, jax_threefry_partitionable on): split, fold_in, bits,
+uniform, gumbel, categorical, permutation and the engine's spawn draws."""
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +60,82 @@ def test_key_chain_matches_jax():
         jk, _ = jax_engine._advance_key(jk)
         tk, _ = threefry.split(tk)
         np.testing.assert_array_equal(_u32(tk), np.asarray(jk))
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 64])
+def test_split_n_matches_jax(n):
+    for words in _keys(12, seed=n):
+        want = np.asarray(jax.random.key_data(jax.random.split(_jax_key(words), n)))
+        got = threefry.split(_key_tensor(words, "cpu"), n)
+        assert got.shape == (n, 2) and got.dtype == torch.int32
+        np.testing.assert_array_equal(_u32(got), want)
+
+
+def test_fold_in_matches_jax():
+    for words in _keys(12, seed=11):
+        for data in (0, 1, 7, 7777, 123456, 2 ** 31 - 1):
+            want = np.asarray(jax.random.key_data(
+                jax.random.fold_in(_jax_key(words), data)))
+            got = threefry.fold_in(_key_tensor(words, "cpu"), data)
+            np.testing.assert_array_equal(_u32(got), want)
+            # the trainer folds in a device scalar (its update counter)
+            got_t = threefry.fold_in(_key_tensor(words, "cpu"),
+                                     torch.tensor(data, dtype=torch.int32))
+            np.testing.assert_array_equal(_u32(got_t), want)
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 7), (512, 7)])
+def test_bits_uniform_gumbel_match_jax(shape):
+    """Multi-axis bits count the flat index; uniform and gumbel (float32)
+    are compared bit for bit, the gumbel log included."""
+    for words in _keys(8, seed=len(shape)):
+        k, t = _jax_key(words), _key_tensor(words, "cpu")
+        np.testing.assert_array_equal(
+            threefry.random_bits(t, shape).numpy(),
+            np.asarray(jax.random.bits(k, shape, jnp.uint32)).astype(np.int64))
+        for got, want in ((threefry.uniform(t, shape),
+                           jax.random.uniform(k, shape)),
+                          (threefry.gumbel(t, shape),
+                           jax.random.gumbel(k, shape))):
+            assert got.dtype == torch.float32 and tuple(got.shape) == shape
+            np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                          np.asarray(want).view(np.int32))
+
+
+def test_log_f32_matches_jnp_log():
+    """The log under gumbel, bitwise against jnp.log on the CPU over both
+    of gumbel's ranges ([tiny, 1) and (1e-7, 88]) and their ends."""
+    rng = np.random.RandomState(1)
+    x = np.concatenate([
+        rng.uniform(0, 1, 100000), rng.uniform(0, 100, 50000),
+        rng.uniform(1e-37, 1e-3, 20000),
+        [1.1754944e-38, 1.1920929e-07, 0.99999994, 1.0, 87.33655]]) \
+        .astype(np.float32)
+    x = x[x > 0]
+    want = np.asarray(jnp.log(jnp.asarray(x)))
+    got = threefry.log_f32(torch.from_numpy(x)).numpy()
+    same = got.view(np.int32) == want.view(np.int32)
+    assert same.all(), x[~same][:5]
+
+
+def test_categorical_matches_jax():
+    rng = np.random.RandomState(4)
+    for words in _keys(8, seed=21):
+        logits = (rng.randn(2048, 7) * 3).astype(np.float32)
+        want = np.asarray(jax.random.categorical(_jax_key(words),
+                                                 jnp.asarray(logits)))
+        got = threefry.categorical(_key_tensor(words, "cpu"),
+                                   torch.from_numpy(logits))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 4096])
+def test_permutation_matches_jax(n):
+    """n = 4096 takes two sort rounds, the others one (n = 1: none)."""
+    for words in _keys(6, seed=n + 1):
+        want = np.asarray(jax.random.permutation(_jax_key(words), n))
+        got = threefry.permutation(_key_tensor(words, "cpu"), n)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_draw_spawn_r_matches_jax():
