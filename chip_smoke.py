@@ -9,7 +9,12 @@ nvcc, holds each kernel bitwise against its plain PyTorch version on the card
 golden reference traces through the CUDA path, drives the main path
 (``TetrisVectorEnv`` reset / step / rollout with auto_reset at B = 4096 for
 ram, grayscale and rgb) on the default 10 x 20 board and on the wide 32 x 20
-board, and times the kernels beside their plain versions. Then the trainer
+board, and times the kernels beside their plain versions: wrapper ms by CUDA
+events, device us by CUDA events around a CUDA-graph replay of 20
+launches, each against its bound (the bytes it must move at the HBM rate;
+the raster-accumulate with L2 evicted before each launch, its L2-warm time
+beside it), the raster kernels also at 160 and 512 px.
+Then the trainer
 path: the lookahead heuristic (kernel A at 7 * B), the greedy evaluation of
 the line-clear PPO checkpoint (``artifacts/ppo_lineclear_params.npz``; it
 must clear at least 4 lines per episode), and PPO updates through
@@ -62,6 +67,7 @@ WIDE_CASES = (
 # (tests/test_perf_floor.py:85): the second main path.
 WIDE_MAIN = dict(width=32, height=20)
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_traces.json")
+PPO_GRAY_B = 256            # grayscale PPO's batch (PPO_GRAY below)
 
 
 class PhaseError(RuntimeError):
@@ -80,18 +86,19 @@ def _import_port():
     return port
 
 
-def _sync_time(fn, n: int) -> float:
-    """Milliseconds per call of ``fn`` on the card, by CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
+def _fmt_device(times: dict) -> str:
+    """Device us by kernel, each with its bound and share where it has one
+    (C: L2 evicted before each launch), and C's L2-warm time beside it."""
+    def one(k, v):
+        s = f"{k} {v['device_us']:.2f} us"
+        if "bound_us" in v:
+            s += f" (bound {v['bound_us']:.2f}, {100 * v['bound_share']:.1f}%"
+            if "l2_warm_device_us" in v:
+                s += (f", L2 evicted; {v['l2_warm_device_us']:.2f} us with acc"
+                      " warm in L2, which no HBM bound holds")
+            s += ")"
+        return s
+    return ", ".join(one(k, v) for k, v in times.items())
 
 
 # ------------------------------------------------------------------- phases
@@ -257,28 +264,64 @@ def _check_raster(cases, rng):
     return err
 
 
-def phase_raster_kernels(board_rows):
+def _check_offset_views(cases, rng):
+    """Each (cfg, rows, size): kernels B and C into an image tensor that is a
+    view at a 4-, 8- and 12-byte offset of its buffer (4- but not 16-byte
+    aligned), bitwise equal to the plain versions, with no byte outside the
+    view written. Returns the largest difference (0)."""
     import numpy as np
     import torch
-    from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.ops import cuda_raster, raster
+    for cfg, rows, size in cases:
+        B = rows.shape[-1]
+        n = B * size * size
+        want = raster.rasterize_rows_plain(cfg, rows, size)
+        for off in (4, 8, 12):
+            buf = torch.full((n + 16,), 77, dtype=torch.uint8,
+                             device=rows.device)
+            img = buf[off:off + n].view(B, size, size)
+            cuda_raster._launch(cfg, rows, img, size, accumulate=False)
+            same = torch.equal(img, want)
+            acc0 = torch.as_tensor(
+                rng.randint(0, 256, (B, size, size), dtype=np.uint8),
+                device=rows.device)
+            img.copy_(acc0)
+            cuda_raster.raster_accumulate(cfg, rows, img, size)
+            same = same and torch.equal(img, acc0 + want)
+            if not same or (buf[:off] != 77).any() or (buf[off + n:] != 77).any():
+                raise PhaseError(
+                    f"raster kernels into a view at offset {off}: "
+                    f"{cfg.width}x{cfg.height} B={B} {size}px differs or "
+                    "wrote outside the view")
+    return 0.0
+
+
+def phase_raster_kernels(board_rows):
+    import numpy as np
+    from gym_simpletetris_tpu_torch import EnvConfig
     rng = np.random.RandomState(7)
     sets = [(EnvConfig(), board_rows, "phase-2 boards")]
     for w, h in ((10, 20), (9, 12), (4, 5), (24, 20)):
         cfg = EnvConfig(width=w, height=h)
         sets.append((cfg, _random_rows(cfg, B_MAIN, rng), f"random {w}x{h}"))
+    # grayscale PPO's batch, and an odd batch whose images do not end on a
+    # 4- or 16-byte boundary (83 px)
+    cfg, small = EnvConfig(), EnvConfig(width=4, height=5)
+    extra = [(cfg, _random_rows(cfg, PPO_GRAY_B, rng), 84,
+              f"random 10x20 B={PPO_GRAY_B}"),
+             (cfg, _random_rows(cfg, PPO_GRAY_B, rng), 83,
+              f"random 10x20 B={PPO_GRAY_B}"),
+             (small, _random_rows(small, 3, rng), 83, "random 4x5 B=3")]
     err = _check_raster([(cfg, rows, 84, what) for cfg, rows, what in sets]
-                        + [(EnvConfig(), board_rows, 160, "phase-2 boards")],
-                        rng)
-    # an odd batch whose image bytes do not end on a word
-    cfg = EnvConfig(width=4, height=5)
-    rows = _random_rows(cfg, 3, rng)
-    got = cuda_raster.rasterize_rows(cfg, rows, 83)
-    if not torch.equal(got, raster.rasterize_rows_plain(cfg, rows, 83)):
-        raise PhaseError("raster kernel != plain at B=3, 83 px")
+                        + [(EnvConfig(), board_rows, 160, "phase-2 boards")]
+                        + extra, rng)
+    _check_offset_views([(EnvConfig(), board_rows, 84),
+                         (small, extra[2][1], 83)], rng)
     log(f"phase 3 raster kernels: bitwise equal to the plain raster and "
         f"raster-accumulate on {len(sets)} board sets at B={B_MAIN}, 84 px "
-        f"(and 160 px on the phase-2 boards)")
+        f"(and 160 px on the phase-2 boards), at B={PPO_GRAY_B} (84 and "
+        f"83 px) and B=3 (83 px), and into image views at 4-, 8- and 12-byte "
+        f"offsets (B={B_MAIN} 84 px, B=3 83 px)")
     return err
 
 
@@ -298,10 +341,19 @@ def phase_wide_raster_kernels(wide_boards):
         cfg = EnvConfig(width=w, height=h)
         cases.append((cfg, _random_rows(cfg, B, rng), size,
                       f"random {w}x{h} B={B}"))
+    cfg = EnvConfig(**WIDE_MAIN)
+    cases.append((cfg, _random_rows(cfg, PPO_GRAY_B, rng), 84,
+                  f"random 32x20 B={PPO_GRAY_B}"))
     err = _check_raster(cases, rng)
+    by_what = {(what, size): (c, rows) for c, rows, size, what in cases}
+    _check_offset_views(
+        [by_what["phase-2w boards 32x20", 84] + (84,),
+         by_what["random 40x26 B=1024", 512] + (512,)], rng)
     log(f"phase 3w wide raster kernels: bitwise equal to the plain raster "
         f"and raster-accumulate on {len(cases)} word-form board sets "
-        f"({', '.join(what + f' {size}px' for _, _, size, what in cases)})")
+        f"({', '.join(what + f' {size}px' for _, _, size, what in cases)}), "
+        "and into image views at 4-, 8- and 12-byte offsets (32x20 84 px, "
+        "40x26 512 px)")
     return err
 
 
@@ -421,13 +473,18 @@ def phase_main_path(board: dict, label: str):
     return launches, envs
 
 
-def phase_timing(envs, board: dict, label: str):
-    """For information only: env-steps/s of the rollout and each kernel's time
-    beside its plain version's, at B = 4096 on ``board``."""
+def phase_timing(envs, board: dict, label: str, extra=()):
+    """For information only: env-steps/s of the rollout and each kernel's
+    time at B = 4096 on ``board``: wrapper ms (CUDA events, Python and
+    ctypes included) beside its plain version's, and device us
+    (CUDA-graph replay) beside its bound, C with L2 evicted
+    (``kernel_timing.raster_device_times``). ``extra``: more
+    (cfg, rows, size) at which to time the raster kernels' device us."""
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step, raster
+    from gym_simpletetris_tpu_torch.utils import kernel_timing as kt
     rates = {}
     for o, (env, s, acts) in envs.items():
         runs = []
@@ -446,21 +503,31 @@ def phase_timing(envs, board: dict, label: str):
     rows = out.emitted_rows
     acc = torch.zeros((B_MAIN, 84, 84), dtype=torch.uint8, device=rows.device)
     ms = {
-        "step": (_sync_time(lambda: cuda_step.step(cfg, s, a, r, key), 200),
-                 _sync_time(lambda: E.transition_plain(cfg, s, a, r, key), 50)),
-        "raster": (_sync_time(lambda: cuda_raster.rasterize_rows(cfg, rows), 200),
-                   _sync_time(lambda: raster.rasterize_rows_plain(cfg, rows), 50)),
+        "step": (kt.sync_ms(lambda: cuda_step.step(cfg, s, a, r, key), 200),
+                 kt.sync_ms(lambda: E.transition_plain(cfg, s, a, r, key), 50)),
+        "raster": (kt.sync_ms(lambda: cuda_raster.rasterize_rows(cfg, rows), 200),
+                   kt.sync_ms(lambda: raster.rasterize_rows_plain(cfg, rows), 50)),
         "raster_accumulate": (
-            _sync_time(lambda: cuda_raster.raster_accumulate(cfg, rows, acc), 200),
-            _sync_time(lambda: raster.raster_accumulate_plain(cfg, rows, acc), 50)),
+            kt.sync_ms(lambda: cuda_raster.raster_accumulate(cfg, rows, acc), 200),
+            kt.sync_ms(lambda: raster.raster_accumulate_plain(cfg, rows, acc), 50)),
     }
+    step_us = kt.device_us(lambda: cuda_step.step(cfg, s, a, r, key))
+    step_bound = kt.bound_us(kt.step_bytes(cfg, B_MAIN))
+    dev = {"step": dict(device_us=step_us, bound_us=step_bound,
+                        bound_share=step_bound / step_us)}
+    dev.update(kt.raster_device_times(cfg, rows, 84))
     log(f"{label} (information only, {cfg.width}x{cfg.height}, B={B_MAIN}, "
         f"T={STEPS}): "
         "env-steps/s of the rollout, 3 runs sorted: "
         + ", ".join(f"{o} {[round(v) for v in r]}" for o, r in rates.items())
-        + "; kernel ms "
-        + ", ".join(f"{k} {a:.5f} (plain {p:.5f})" for k, (a, p) in ms.items()))
-    return rates, ms
+        + "; kernel wrapper ms "
+        + ", ".join(f"{k} {a:.5f} (plain {p:.5f})" for k, (a, p) in ms.items())
+        + f"; device at 84 px: {_fmt_device(dev)}")
+    for xcfg, xrows, size in extra:
+        log(f"  {label}, raster kernels at {size} px, {xcfg.width}x"
+            f"{xcfg.height}, B={xrows.shape[-1]}: "
+            + _fmt_device(kt.raster_device_times(xcfg, xrows, size)))
+    return rates, ms, dev
 
 
 # ------------------------------------------------------------ trainer path
@@ -741,8 +808,16 @@ def main() -> int:
         launches, envs = phase_main_path({}, "phase 5 main path")
         wide_launches, wide_envs = phase_main_path(
             WIDE_MAIN, "phase 5w wide main path")
-        _, ms = phase_timing(envs, {}, "phase 6 timing")
-        _, wide_ms = phase_timing(wide_envs, WIDE_MAIN, "phase 6w wide timing")
+        import numpy as np
+        from gym_simpletetris_tpu_torch import EnvConfig
+        rng = np.random.RandomState(12)
+        w40 = EnvConfig(width=40, height=26)
+        _, ms, dev = phase_timing(
+            envs, {}, "phase 6 timing",
+            [(EnvConfig(), _random_rows(EnvConfig(), B_MAIN, rng), 160)])
+        _, wide_ms, wide_dev = phase_timing(
+            wide_envs, WIDE_MAIN, "phase 6w wide timing",
+            [(w40, _random_rows(w40, 1024, rng), 512)])
         trainer_err = phase_trainer_path()
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -751,11 +826,11 @@ def main() -> int:
         return 1
     pkg = "gym_simpletetris_tpu_torch/csrc/"
     kernels = []
-    for suffix, n, err, t in (
+    for suffix, n, err, t, d in (
             ("", launches, {k: max(v, trainer_err.get(k, 0.0)) for k, v in
-                            dict(raster_err, step=step_err).items()}, ms),
+                            dict(raster_err, step=step_err).items()}, ms, dev),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),
-             wide_ms)):
+             wide_ms, wide_dev)):
         for name, src, replaces in (
                 ("step", "step.cu", "pallas_step.py:99"),
                 ("raster", "raster.cu", "pallas_raster.py:38"),
@@ -764,7 +839,8 @@ def main() -> int:
                 name=name + suffix, route="cuda", source=pkg + src,
                 replaces="gym_simpletetris_tpu/ops/" + replaces,
                 launches=n[name], max_abs_err=err[name], ms=t[name][0],
-                plain_ms=t[name][1]))
+                plain_ms=t[name][1], bound_ms=d[name]["bound_us"] / 1e3,
+                bound_by="bytes", library_ms=None, **d[name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

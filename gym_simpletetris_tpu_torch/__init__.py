@@ -10,12 +10,13 @@ wrappers (``api.wrappers``), the actor-critic and the lookahead heuristic
 ``train.run_ppo``, ``train.evaluate``).
 
     >>> from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
-    >>> env = TetrisVectorEnv(EnvConfig(obs_type="ram", auto_reset=True), 4096,
-    ...                       device="cuda")
+    >>> env = TetrisVectorEnv(EnvConfig(obs_type="ram", auto_reset=True), 4096)
     >>> obs, state = env.reset(0)
     >>> obs, state, reward, done, info = env.step(state, actions)
 
-This package imports neither jax nor gym_simpletetris_tpu.
+The entry points run on the card unless given ``device="cpu"``; without a
+card a CUDA request raises. This package imports neither jax nor
+gym_simpletetris_tpu.
 """
 
 from .core.config import EnvConfig

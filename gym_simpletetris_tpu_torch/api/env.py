@@ -92,9 +92,11 @@ def apply_reset_mask(cfg: EnvConfig, state: EnvState, emitted: torch.Tensor,
 
 def reset_fn(cfg: EnvConfig, batch_size: int, key,
              injected_r: Optional[torch.Tensor] = None,
-             device="cpu") -> Tuple[torch.Tensor, EnvState]:
-    """Fresh engine + episode reset. The observation is the empty board."""
-    state = init_state(cfg, batch_size, key, device)
+             device="cuda") -> Tuple[torch.Tensor, EnvState]:
+    """Fresh engine + episode reset. The observation is the empty board.
+    On the card unless ``device="cpu"``; without a card a CUDA request
+    raises."""
+    state = init_state(cfg, batch_size, key, check_device(device))
     state, emitted = E.engine_clear(cfg, state, injected_r=injected_r)
     return build_observation(cfg, emitted), state
 
@@ -200,7 +202,8 @@ def check_device(device) -> torch.device:
 
 
 class TetrisVectorEnv:
-    """Batched SimpleTetris on a torch device.
+    """Batched SimpleTetris on a torch device: the card unless
+    ``device="cpu"`` (a CUDA request without a card raises).
 
     >>> env = TetrisVectorEnv(EnvConfig(obs_type="ram"), 4096, device="cuda")
     >>> obs, state = env.reset(0)
@@ -210,7 +213,7 @@ class TetrisVectorEnv:
     PIECE_NAMES = PIECE_NAMES
 
     def __init__(self, config: EnvConfig = EnvConfig(), batch_size: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         device = check_device(device)
         self.config = config
         self.batch_size = batch_size

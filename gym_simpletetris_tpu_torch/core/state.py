@@ -87,9 +87,10 @@ def rows_shape(config: EnvConfig, batch_size: int) -> tuple:
 
 
 def init_state(config: EnvConfig, batch_size: int, key,
-               device="cpu") -> EnvState:
+               device="cuda") -> EnvState:
     """Fresh-engine state (TetrisEngine.__init__): time and score start at -1,
-    everything else zero, no piece spawned yet."""
+    everything else zero, no piece spawned yet. On the card unless
+    ``device="cpu"``; without a card torch raises."""
     b = batch_size
     device = torch.device(device)
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)

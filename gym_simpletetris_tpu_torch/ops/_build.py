@@ -104,6 +104,7 @@ def load_library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tetris_step_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.tetris_step_launch.restype = i
-    lib.tetris_raster_launch.argtypes = [vp, i, i, vp, vp, i, vp, i, i, vp]
+    lib.tetris_raster_launch.argtypes = [vp, i, i, i, vp, vp, vp, i, i, i, vp,
+                                         i, i, vp]
     lib.tetris_raster_launch.restype = i
     return lib

@@ -14,19 +14,50 @@ A CPU tensor goes to the plain versions in ``ops/raster.py``, a CUDA tensor
 to the kernel, anything else raises. Rows are [H, B] for single-word boards
 and [H, NW, B] for wide ones, at every width the geometry admits. Each
 wrapper's ``launches`` counts its kernel launches.
+
+The kernel's work items are bands of an image's pixel rows, each holding
+whole cell rows (``raster_bands``); a block builds the pixel pattern of each
+cell row of its band once and copies it to every pixel row of that cell.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..core.config import EnvConfig
 from ..core.state import rows_shape
 from .cuda_step import check_tensor
-from .raster import (device_axis_maps, rasterize_rows_plain,
+from .raster import (device_axis_maps, raster_geometry, rasterize_rows_plain,
                      raster_accumulate_plain)
 
-_MAX_SIZE = 4096   # the pixel maps (2 * size int32) live in shared memory
+_MAX_SIZE = 4096   # the per-column tables and two bands fit in shared memory
+_BAND_BYTES = 32768   # about the image bytes of one work item
+
+
+@functools.lru_cache(maxsize=64)
+def raster_bands(d0: int, d1: int, size: int):
+    """The kernel's work split of an image of a (d0, d1) board: (R, starts).
+    Band k holds cell rows [k * R, min((k + 1) * R, d0)) and pixel rows
+    [starts[k], starts[k + 1]): the first band starts at the image's top,
+    each later one at the gap above its first cell row, and the last ends at
+    the image's bottom. R keeps a band's image near ``_BAND_BYTES`` (so its
+    cell-row patterns, R * size bytes, fit in shared memory) and is the
+    whole board at 84 and 160 px."""
+    gap, block, _, _, pad0, _ = raster_geometry(d0, d1, size)
+    pitch = block + gap
+    R = max(1, min(d0, _BAND_BYTES // size // pitch))
+    n = -(-d0 // R)
+    starts = [0] + [pad0 + k * R * pitch for k in range(1, n)] + [size]
+    return R, np.asarray(starts, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_bands(d0: int, d1: int, size: int, device: torch.device):
+    R, starts = raster_bands(d0, d1, size)
+    return R, torch.as_tensor(starts, device=device)
 
 
 def rasterize_rows(cfg: EnvConfig, rows: torch.Tensor,
@@ -74,10 +105,12 @@ def _launch(cfg: EnvConfig, rows: torch.Tensor, out: torch.Tensor, size: int,
     if out.data_ptr() % 4:
         raise ValueError("the image tensor must be 4-byte aligned")
     a0, a1 = device_axis_maps(H, cfg.width, size, dev)
+    R, bands = _device_bands(H, cfg.width, size, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load_library().tetris_raster_launch(
-        rows.data_ptr(), NW, B, a0.data_ptr(), a1.data_ptr(), size,
-        out.data_ptr(), int(accumulate),
+        rows.data_ptr(), H, NW, B, a0.data_ptr(), a1.data_ptr(),
+        bands.data_ptr(), bands.numel() - 1, R, size, out.data_ptr(),
+        int(accumulate),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)
     if err != 0:

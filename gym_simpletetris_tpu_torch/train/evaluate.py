@@ -18,7 +18,7 @@ import json
 import numpy as np
 import torch
 
-from ..api.env import TetrisVectorEnv
+from ..api.env import TetrisVectorEnv, check_device
 from ..api.wrappers import EpisodeStats
 from ..core.config import EnvConfig
 
@@ -57,8 +57,10 @@ def _ppo_params(ckpt: str) -> dict:
 
 
 def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
-                   seed: int = 0, device="cpu"):
-    """``action_fn(obs, env_state) -> int32[batch]`` on ``device``."""
+                   seed: int = 0, device="cuda"):
+    """``action_fn(obs, env_state) -> int32[batch]`` on ``device``: the card
+    unless ``device="cpu"``; a CUDA request without a card raises here."""
+    device = check_device(device)
     if name == "random":
         rng = np.random.RandomState(seed)
         return lambda obs, st: torch.as_tensor(rng.randint(0, 7, batch),

@@ -76,6 +76,38 @@ def test_raster_kernels_match_plain(dev, w, h, size):
     assert torch.equal(cuda_raster.raster_accumulate(cfg, rows, acc, size), want)
 
 
+@pytest.mark.parametrize("w,h,size,B,offset", [
+    (4, 5, 83, 3, 0), (10, 20, 83, 256, 0), (10, 20, 84, 3, 0),
+    (10, 20, 84, 256, 0), (10, 20, 160, 256, 0), (40, 26, 512, 3, 0),
+    (32, 20, 84, 256, 0), (10, 20, 84, 256, 4), (10, 20, 84, 3, 8),
+    (4, 5, 83, 3, 4), (32, 20, 84, 256, 12), (40, 26, 512, 3, 4)])
+def test_raster_kernels_at_batch_sizes_and_offsets(dev, w, h, size, B, offset):
+    """Kernels B and C at PPO's batch (256) and at B = 3, at 83 px (an
+    image that ends mid-chunk), 160 px, 512 px on word-form rows (NW = 2),
+    and into an image tensor that is a view at a 4-byte offset: bitwise
+    equal to the plain versions, and nothing outside the view is written."""
+    cfg = EnvConfig(width=w, height=h)
+    rng = np.random.RandomState(size * B + offset)
+    shape = (h, B) if cfg.num_words == 1 else (h, cfg.num_words, B)
+    words = rng.randint(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    rows = torch.from_numpy(words.view(np.int32)).to(dev)
+    n = B * size * size
+    buf = torch.full((n + 16,), 77, dtype=torch.uint8, device=dev)
+    img = buf[offset:offset + n].view(B, size, size)
+    acc0 = torch.as_tensor(rng.randint(0, 256, (B, size, size), dtype=np.uint8),
+                           device=dev)
+    want = raster.rasterize_rows_plain(cfg, rows, size)
+    if offset == 0:
+        assert torch.equal(cuda_raster.rasterize_rows(cfg, rows, size), want)
+    cuda_raster._launch(cfg, rows, img, size, accumulate=False)
+    assert torch.equal(img, want)
+    img.copy_(acc0)
+    for _ in range(2):
+        cuda_raster.raster_accumulate(cfg, rows, img, size)
+    assert torch.equal(img, acc0 + want + want)
+    assert (buf[:offset] == 77).all() and (buf[offset + n:] == 77).all()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     cfg = EnvConfig()
     rows = torch.zeros((20, 8), dtype=torch.int32, device=dev)

@@ -48,7 +48,8 @@ def assert_bitwise(got: torch.Tensor, want, msg=""):
 
 
 def _pair(**kw):
-    return JaxEnv(JaxConfig(**kw), B), TetrisVectorEnv(EnvConfig(**kw), B)
+    return (JaxEnv(JaxConfig(**kw), B),
+            TetrisVectorEnv(EnvConfig(**kw), B, device="cpu"))
 
 
 @pytest.mark.parametrize("kw", [
@@ -102,7 +103,7 @@ def test_rollout_matches_jax(obs_type, acc_mode):
 
 
 def test_rollout_equals_step_loop_without_obs():
-    tenv = TetrisVectorEnv(EnvConfig(auto_reset=True), B)
+    tenv = TetrisVectorEnv(EnvConfig(auto_reset=True), B, device="cpu")
     _, s = tenv.reset(1)
     acts = np.random.RandomState(2).randint(0, 7, (20, B))
     final, acc, rew, done = tenv.rollout(s, acts, with_obs=False)
@@ -177,7 +178,7 @@ def test_golden_trace(trace):
     lanes = 2
     full = lambda v: torch.full((lanes,), v, dtype=torch.int32)
     resets = list(trace["resets"])
-    s = init_state(cfg, lanes, 0)
+    s = init_state(cfg, lanes, 0, device="cpu")
     s, _ = E.engine_clear(cfg, s, injected_r=full(resets.pop(0)))
     for t, step in enumerate(trace["steps"]):
         r = step["r"] if step["r"] is not None else 0

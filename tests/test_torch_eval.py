@@ -53,7 +53,7 @@ def test_greedy_eval_matches_jax(monkeypatch):
     jcfg, tcfg = JaxConfig(**kw), EnvConfig(**kw)
     jenv = JaxEnv(jcfg, b)
     jfn = jax_eval.make_action_fn("ppo", jcfg, b, CKPT)
-    tfn = evaluate.make_action_fn("ppo", tcfg, b, NPZ)
+    tfn = evaluate.make_action_fn("ppo", tcfg, b, NPZ, device="cpu")
     want = jax_eval.evaluate_policy(jenv, jfn, steps, 0)
 
     # the JAX loop of evaluate_policy again, keeping actions and the state
@@ -83,7 +83,8 @@ def test_greedy_eval_matches_jax(monkeypatch):
         tacts.append(a.numpy())
         return a
 
-    got = evaluate.evaluate_policy(TetrisVectorEnv(tcfg, b), trec, steps, 0)
+    got = evaluate.evaluate_policy(TetrisVectorEnv(tcfg, b, device="cpu"),
+                                   trec, steps, 0)
     diff = np.argwhere(np.stack(jacts) != np.stack(tacts))
     assert not len(diff), f"first differing (step, env): {diff[0]}"
     for f in ("ep_return", "ep_length", "last_return", "last_length",
@@ -105,7 +106,7 @@ def test_ppo_policy_from_a_trainer_checkpoint(tmp_path):
                   "--rollout-len", "4", "--minibatches", "2", "--epochs", "1",
                   "--updates", "1", "--ckpt", str(path), "--device", "cpu"])
     cfg = EnvConfig(width=6, height=8, auto_reset=True, reward_step=True)
-    fn = evaluate.make_action_fn("ppo", cfg, 8, str(path))
+    fn = evaluate.make_action_fn("ppo", cfg, 8, str(path), device="cpu")
     obs = state.obs
     a = fn(obs, None)
     from gym_simpletetris_tpu_torch.models.actor_critic import ActorCritic
@@ -118,18 +119,19 @@ def test_ppo_policy_from_a_trainer_checkpoint(tmp_path):
 
 def test_action_fns_and_errors():
     cfg = EnvConfig(auto_reset=True)
-    env = TetrisVectorEnv(cfg, 4)
+    env = TetrisVectorEnv(cfg, 4, device="cpu")
     obs, st = env.reset(0)
-    a = evaluate.make_action_fn("random", cfg, 4, seed=3)(obs, st)
+    a = evaluate.make_action_fn("random", cfg, 4, seed=3,
+                                device="cpu")(obs, st)
     np.testing.assert_array_equal(a.numpy(),
                                   np.random.RandomState(3).randint(0, 7, 4))
     with pytest.raises(ValueError, match="ckpt"):
-        evaluate.make_action_fn("ppo", cfg, 4)
+        evaluate.make_action_fn("ppo", cfg, 4, device="cpu")
     for name, item in (("es", "item 12"), ("dqn", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
-            evaluate.make_action_fn(name, cfg, 4, ckpt="x")
+            evaluate.make_action_fn(name, cfg, 4, ckpt="x", device="cpu")
     with pytest.raises(ValueError, match="unknown"):
-        evaluate.make_action_fn("nope", cfg, 4)
+        evaluate.make_action_fn("nope", cfg, 4, device="cpu")
 
 
 def test_main_cpu_and_cuda_request(capsys):

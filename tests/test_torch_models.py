@@ -187,7 +187,7 @@ def test_heuristic_matches_jax(kw, b):
     dones and every EpisodeStats field bitwise."""
     kw = dict(kw, auto_reset=True, reward_step=True)
     jenv = JaxEnv(JaxConfig(**kw), b)
-    tenv = TetrisVectorEnv(EnvConfig(**kw), b)
+    tenv = TetrisVectorEnv(EnvConfig(**kw), b, device="cpu")
     jrec, trec = [], []
     jst = _run_heuristic(jenv, jax_wrappers.EpisodeStats(jenv),
                          jax_heuristic.make_heuristic_policy(jenv.config),
@@ -219,7 +219,7 @@ def test_heuristic_wide_board_matches_jax_parts():
     kw = dict(width=32, height=10, auto_reset=True, reward_step=True)
     b = 8
     jenv = JaxEnv(JaxConfig(**kw), b)
-    tenv = TetrisVectorEnv(EnvConfig(**kw), b)
+    tenv = TetrisVectorEnv(EnvConfig(**kw), b, device="cpu")
     jcfg, w = jenv.config, jax_heuristic.HeuristicWeights()
 
     @jax.jit
@@ -250,7 +250,7 @@ def test_heuristic_tile_and_scores_match_jax():
     state, column heights and board scores."""
     cfg_kw = dict(width=9, height=12, auto_reset=True)
     jenv = JaxEnv(JaxConfig(**cfg_kw), 6)
-    tenv = TetrisVectorEnv(EnvConfig(**cfg_kw), 6)
+    tenv = TetrisVectorEnv(EnvConfig(**cfg_kw), 6, device="cpu")
     rng = np.random.RandomState(2)
     _, js = jenv.reset(jax.random.PRNGKey(1))
     _, ts = tenv.reset(1)
@@ -282,7 +282,8 @@ def test_heuristic_tile_and_scores_match_jax():
 def test_frame_stack_matches_jax(obs_type):
     kw = dict(obs_type=obs_type, auto_reset=True, width=6, height=8)
     jfs = jax_wrappers.FrameStack(JaxEnv(JaxConfig(**kw), 4), k=3)
-    tfs = wrappers.FrameStack(TetrisVectorEnv(EnvConfig(**kw), 4), k=3)
+    tfs = wrappers.FrameStack(
+        TetrisVectorEnv(EnvConfig(**kw), 4, device="cpu"), k=3)
     jf, js = jfs.reset(jax.random.PRNGKey(2))
     tf, ts = tfs.reset(2)
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
@@ -299,4 +300,4 @@ def test_frame_stack_matches_jax(obs_type):
 
 def test_episode_stats_requires_auto_reset():
     with pytest.raises(ValueError, match="auto_reset"):
-        wrappers.EpisodeStats(TetrisVectorEnv(EnvConfig(), 2))
+        wrappers.EpisodeStats(TetrisVectorEnv(EnvConfig(), 2, device="cpu"))

@@ -33,7 +33,8 @@ def test_import_leaves_jax_out():
         "gym_simpletetris_tpu_torch.train.ppo, "
         "gym_simpletetris_tpu_torch.train.run_ppo, "
         "gym_simpletetris_tpu_torch.train.evaluate, "
-        "gym_simpletetris_tpu_torch.utils.checkpoint\n"
+        "gym_simpletetris_tpu_torch.utils.checkpoint, "
+        "gym_simpletetris_tpu_torch.utils.kernel_timing\n"
         "from gym_simpletetris_tpu_torch.utils.checkpoint import "
         "load_flax_params\n"
         "load_flax_params('artifacts/ppo_lineclear_params.npz')\n"
@@ -55,6 +56,24 @@ def test_cuda_request_without_cuda_raises():
         TetrisVectorEnv(EnvConfig(), 4, device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         init_state(EnvConfig(), 4, 0, device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """With no ``device`` the entry points ask for the card: on a host
+    without one each raises, none runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the test is about hosts without it")
+    from gym_simpletetris_tpu_torch.api.env import reset_fn
+    from gym_simpletetris_tpu_torch.train.evaluate import make_action_fn
+    cfg = EnvConfig()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TetrisVectorEnv(cfg, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        reset_fn(cfg, 4, 0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_state(cfg, 4, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_action_fn("random", cfg, 4)
 
 
 def test_other_devices_raise():
@@ -84,7 +103,7 @@ def test_library_name_follows_the_sources():
 
 def test_cpu_step_never_launches():
     cfg = EnvConfig()
-    s, _ = E.engine_clear(cfg, init_state(cfg, 4, 0))
+    s, _ = E.engine_clear(cfg, init_state(cfg, 4, 0, device="cpu"))
     n = cuda_step.step.launches
     out = E.engine_step(cfg, s, np.full(4, 2))
     assert out.state.rows.device.type == "cpu"

@@ -14,7 +14,8 @@ from gym_simpletetris_tpu.ops import bitops as jax_bitops
 from gym_simpletetris_tpu.ops.pallas_raster import (
     rasterize_rows_pallas, raster_accumulate as jax_raster_accumulate)
 from gym_simpletetris_tpu.ops.raster import (
-    rasterize_gather, grayscale_to_rgb as jax_grayscale_to_rgb)
+    build_raster_maps, rasterize_gather, rasterize_host,
+    grayscale_to_rgb as jax_grayscale_to_rgb)
 from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.ops import bitops, cuda_raster, raster
 
@@ -102,3 +103,39 @@ def test_grayscale_to_rgb_matches_jax():
     np.testing.assert_array_equal(
         raster.grayscale_to_rgb(torch.from_numpy(img)).numpy(),
         np.asarray(jax_grayscale_to_rgb(jnp.asarray(img))))
+
+
+@pytest.mark.parametrize("size", [84, 160, 512])
+@pytest.mark.parametrize("d0,d1", [(20, 10), (26, 40)])
+def test_kernel_bands_cover_the_maps(d0, d1, size):
+    """The raster kernel's work split (``cuda_raster.raster_bands``) against
+    the JAX package's ``build_raster_maps``: the bands tile the image's
+    pixel rows, band k's rows read only cell rows [k * R, (k + 1) * R), and
+    composing the image the kernel's way (one pattern per cell row of the
+    band, the gap pattern, the border's zeros, copied to each pixel row)
+    gives ``rasterize_host``."""
+    R, starts = cuda_raster.raster_bands(d0, d1, size)
+    base, cell = build_raster_maps(d0, d1, size)
+    assert starts[0] == 0 and starts[-1] == size
+    assert (np.diff(starts) > 0).all() and len(starts) - 1 == -(-d0 // R)
+    if size <= 160:
+        assert R == d0                        # one band: the whole image
+    cells = _boards(d1, d0, 1, size)[0].T     # [d0, d1]
+    gap_row = np.where(base[size // 2] == 0, 0, 128).astype(np.uint8)
+    col = np.where(cell.max(axis=0) >= 0, cell.max(axis=0) % d1, -1)
+    img = np.empty((size, size), np.uint8)
+    for k in range(len(starts) - 1):
+        lo, hi = starts[k], starts[k + 1]
+        band_rows = cell[lo:hi].max(axis=1)   # cell index or -1 per pixel row
+        used = np.unique(band_rows[band_rows >= 0] // d1)
+        assert used.min() >= k * R and used.max() < min((k + 1) * R, d0)
+        assert len(used) == min(R, d0 - k * R)
+        pats = {r: gap_row + np.uint8(62) * np.where(
+            col >= 0, cells[r, np.maximum(col, 0)], 0).astype(np.uint8)
+            for r in used}
+        for p in range(lo, hi):
+            if band_rows[p - lo] >= 0:
+                img[p] = pats[band_rows[p - lo] // d1]
+            else:                             # gap or border row
+                img[p] = gap_row if base[p].any() else 0
+    np.testing.assert_array_equal(img, rasterize_host(cells, d0, d1, size))

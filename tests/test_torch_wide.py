@@ -241,7 +241,7 @@ def test_init_state_layout():
     for w, nw in ((24, 1), (25, 2), (57, 3), (1024, 33)):
         jcfg, cfg = _pair_cfg(width=w, height=4)
         want = np.asarray(jax_init_state(jcfg, 3, jax.random.PRNGKey(0)).rows)
-        got = init_state(cfg, 3, 0).rows
+        got = init_state(cfg, 3, 0, device="cpu").rows
         assert cfg.num_words == nw and tuple(got.shape) == want.shape
 
 
@@ -251,7 +251,8 @@ def test_env_reset_step_matches_jax(obs_type):
     dict; a wide JAX state carried across mid-episode continues the same."""
     kw = dict(width=32, height=20, obs_type=obs_type, auto_reset=True)
     B = 8
-    jenv, tenv = JaxEnv(JaxConfig(**kw), B), TetrisVectorEnv(EnvConfig(**kw), B)
+    jenv = JaxEnv(JaxConfig(**kw), B)
+    tenv = TetrisVectorEnv(EnvConfig(**kw), B, device="cpu")
     jobs, js = jenv.reset(jax.random.PRNGKey(7))
     tobs, ts = tenv.reset(7)
     assert_bitwise(tobs, jobs, "reset obs")
@@ -285,7 +286,8 @@ def test_rollout_matches_jax(obs_type, acc_mode):
     inside the rollout. (rgb's storage observation is grayscale's.)"""
     kw = dict(width=32, height=20, obs_type=obs_type, auto_reset=True)
     B = 8
-    jenv, tenv = JaxEnv(JaxConfig(**kw), B), TetrisVectorEnv(EnvConfig(**kw), B)
+    jenv = JaxEnv(JaxConfig(**kw), B)
+    tenv = TetrisVectorEnv(EnvConfig(**kw), B, device="cpu")
     js = prefilled_jax_state(jenv.config, B, np.random.RandomState(9))
     ts = to_port(js)
     acts = np.random.RandomState(10).randint(0, 7, (30, B)).astype(np.int32)
@@ -333,7 +335,8 @@ def test_image_width_limit_matches_jax():
     ValueError in both packages."""
     for w in (41, 42):
         kw = dict(width=w, height=20, obs_type="grayscale")
-        jenv, tenv = JaxEnv(JaxConfig(**kw), 2), TetrisVectorEnv(EnvConfig(**kw), 2)
+        jenv = JaxEnv(JaxConfig(**kw), 2)
+        tenv = TetrisVectorEnv(EnvConfig(**kw), 2, device="cpu")
         if w == 41:
             assert_bitwise(tenv.reset(0)[0], jenv.reset(jax.random.PRNGKey(0))[0])
             continue
