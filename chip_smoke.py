@@ -49,8 +49,29 @@ FLAG_SETS = (
          penalise_holes_increase=True, lock_delay=2, step_reset=True),
     dict(width=9, height=12, lock_delay=3),
     dict(width=24, reward_step=True, penalise_holes_increase=True),  # bit 31
+    # the warp instance's edge (a lane per row, anchor 32 by a second
+    # ballot) and the thread-per-env instance that takes H > 32
+    dict(height=32, advanced_clears=True, penalise_holes=True),
+    dict(height=40, penalise_height_increase=True, lock_delay=1),
 )
-# Wide boards (multi-word rows): (flags, batch sizes). NW = 2, 2, 2, 3, 4, 33.
+# Other action mixes: every env hard-drops (every step locks), and pieces
+# pushed against both walls; and batches around a warp's and a tile's edges.
+MIX_CASES = (("hard", dict(), (B_MAIN, 1000)),
+             ("walls", dict(width=9, height=12), (B_MAIN, 1000)),
+             ("random", dict(height=32), (1, 31, 33)))
+MIX_STEPS = 64
+# Every instance of kernel A, forced, on one step: the rollout's batch and
+# the largest timed one on 10 x 20, a tall board; wide boards below.
+INSTANCE_CASES = ((dict(penalise_holes=True), (B_MAIN, 65536)),
+                  (dict(height=40, penalise_height_increase=True), (B_MAIN,)))
+WIDE_INSTANCE_CASES = ((dict(width=32, advanced_clears=True), (B_MAIN,)),
+                       (dict(width=100, height=31), (1000,)))
+# Kernel A's timed batches on the 10 x 20 board: evaluation, the
+# heuristic's lookahead at 7 * 512, the rollout, the JAX package's ram
+# record batch and the largest; the 32 x 20 board at the rollout's.
+STEP_TIMED_B = (512, 3584, B_MAIN, 16384, 65536)
+# Wide boards (multi-word rows): (flags, batch sizes). NW = 2, 2, 2, 3, 4, 33,
+# 33.
 WIDE_STEPS = 128
 WIDE_CASES = (
     (dict(width=25, advanced_clears=True, penalise_height=True,
@@ -62,6 +83,8 @@ WIDE_CASES = (
     (dict(width=57, height=12, penalise_height=True), (B_MAIN, 1000)),
     (dict(width=100, advanced_clears=True), (B_MAIN, 1000)),
     (dict(width=1024, height=6, penalise_height_increase=True), (64,)),
+    # past the staged thread instance's tile: the global thread instance
+    (dict(width=1024, height=40, penalise_height=True), (64,)),
 )
 # The JAX package's wide-board throughput configuration
 # (tests/test_perf_floor.py:85): the second main path.
@@ -113,32 +136,13 @@ def phase_device():
     from gym_simpletetris_tpu_torch.ops import _build
     info = _build.build()
     _build.load_library()
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+    regs = [ln.strip() for ln in info["log"].splitlines()
+            if "registers" in ln or "stack frame" in ln
+            or "Compiling entry" in ln]
     log(f"phase 1 device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; kernels built in "
         f"{info['seconds']:.2f} s ({info['path'].name}); ptxas: {regs}")
     return card
-
-
-def _prefilled_state(cfg, B, rng, device):
-    """A cleared state whose lower rows are full but for one hole each, so
-    random play clears lines, scores and dies."""
-    import numpy as np
-    import torch
-    from gym_simpletetris_tpu_torch.core import engine as E
-    from gym_simpletetris_tpu_torch.core.state import init_state, rows_shape
-    s = init_state(cfg, B, int(rng.randint(0, 2 ** 31)), device)
-    s, _ = E.engine_clear(cfg, s, injected_r=torch.as_tensor(
-        rng.randint(1, 36, B), device=device))
-    H, nw = cfg.height, cfg.num_words
-    rows = np.zeros((H, nw, B), np.uint32)
-    depth = rng.randint(0, H // 2 + 1, B)
-    for b in range(B):
-        for y in range(H - depth[b], H):
-            full = cfg.valid_mask & ~(1 << (4 + rng.randint(0, cfg.width)))
-            rows[y, :, b] = [(full >> (32 * w)) & 0xFFFFFFFF for w in range(nw)]
-    rows = rows.reshape(rows_shape(cfg, B))
-    return s.replace(rows=torch.from_numpy(rows.view(np.int32)).to(device))
 
 
 def _diff(a, b):
@@ -151,29 +155,34 @@ def _diff(a, b):
     return (ai != bi).any(), (ai - bi).abs().max().to(torch.float32)
 
 
-def _check_step_kernel(cases, steps, seed0):
+def _check_step_kernel(cases, steps, seed0, mix="random"):
     """Each (flags, batch sizes) case: ``steps`` steps of the step kernel and
-    of the plain step from the same prefilled state, every field compared.
-    Returns (max_abs_err, comparisons, {(cfg, B): last emitted rows})."""
+    of the plain step from the same prefilled state, every field compared,
+    with actions of ``mix`` (``kernel_timing.mix_actions``). Returns
+    (max_abs_err, comparisons, {(cfg, B): last emitted rows})."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.api.env import apply_reset_mask
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.core.state import FIELDS
+    from gym_simpletetris_tpu_torch.ops import cuda_step
+    from gym_simpletetris_tpu_torch.utils.kernel_timing import (
+        mix_actions, prefilled_state)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_err, n_cmp, last = 0.0, 0, {}
     for fi, (flags, batches) in enumerate(cases):
         cfg = EnvConfig(**flags)
         for B in batches:
             rng = np.random.RandomState(seed0 + 1000 * fi + B)
-            s_k = s_p = _prefilled_state(cfg, B, rng, dev)
+            s_k = s_p = prefilled_state(cfg, B, rng, dev)
             even = torch.arange(B, device=dev) % 2 == 0
             bad, errs = [], []
             n_done = torch.zeros((), dtype=torch.int64, device=dev)
             n_lines = torch.zeros((), dtype=torch.int64, device=dev)
             for t in range(steps):
-                a = torch.as_tensor(rng.randint(0, 7, B), device=dev)
+                a = torch.as_tensor(mix_actions(mix, B, rng), device=dev)
                 r = torch.as_tensor(rng.randint(1, 36, B), device=dev)
                 o_k = E.engine_step(cfg, s_k, a, injected_r=r)
                 o_p = E.engine_step_plain(cfg, s_p, a, injected_r=r)
@@ -201,26 +210,82 @@ def _check_step_kernel(cases, steps, seed0):
                     f"step kernel != plain: {flags} B={B} first at step {t}, "
                     f"field {names[f]}")
             last[cfg, B] = o_k.emitted_rows
+            inst = cuda_step.launch_plan(cfg.height, cfg.num_words, B,
+                                         sms).instance
             log(f"  step kernel == plain: {flags or 'default'} B={B} "
-                f"NW={cfg.num_words}: {steps} steps, {int(n_done)} done "
-                f"flags, {int(n_lines)} lines")
+                f"NW={cfg.num_words} ({inst} instance, {mix} actions): "
+                f"{steps} steps, {int(n_done)} done flags, {int(n_lines)} "
+                "lines")
     return max_err, n_cmp, last
+
+
+def _check_instances(cases, seed):
+    """Each (flags, batch sizes) case: every instance of kernel A the board
+    takes (``cuda_step.instances_for``), forced, against the plain
+    transition on the same inputs (``kernel_timing.step_inputs``), for
+    random actions and for all hard drops. Returns (max_abs_err,
+    comparisons)."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.core.engine import transition_plain
+    from gym_simpletetris_tpu_torch.core.state import FIELDS
+    from gym_simpletetris_tpu_torch.ops import cuda_step
+    from gym_simpletetris_tpu_torch.utils.kernel_timing import step_inputs
+    rng = np.random.RandomState(seed)
+    max_err, n_cmp = 0.0, 0
+    for flags, batches in cases:
+        cfg = EnvConfig(**flags)
+        names = cuda_step.instances_for(cfg.height, cfg.num_words)
+        for B in batches:
+            s, a, r, key = step_inputs(cfg, B, rng, "cuda")
+            for mix, act in (("random", a), ("hard", torch.full_like(a, 2))):
+                want = transition_plain(cfg, s, act, r, key)
+                for inst in names:
+                    got = cuda_step._launch(cfg, s, act, r, key, inst)
+                    d = [_diff(getattr(got.state, f), getattr(want.state, f))
+                         for f in FIELDS] + [
+                        _diff(x, y) for x, y in (
+                            (got.emitted_rows, want.emitted_rows),
+                            (got.reward, want.reward), (got.done, want.done))]
+                    n_cmp += len(d)
+                    max_err = max(max_err, float(torch.stack(
+                        [e for _, e in d]).max()))
+                    if bool(torch.stack([x for x, _ in d]).any()):
+                        raise PhaseError(f"step kernel instance {inst} != "
+                                         f"plain: {flags} B={B}, {mix}")
+            log(f"  every instance {list(names)} == plain: "
+                f"{flags or 'default'} B={B}, random actions and all hard "
+                "drops")
+    return max_err, n_cmp
 
 
 def phase_step_kernel():
     from gym_simpletetris_tpu_torch import EnvConfig
     cases = [(flags, (B_MAIN, 1000)) for flags in FLAG_SETS]
     max_err, n_cmp, last = _check_step_kernel(cases, STEPS, 0)
+    for k, (mix, flags, batches) in enumerate(MIX_CASES):
+        e, n, _ = _check_step_kernel([(flags, batches)], MIX_STEPS,
+                                     300 + k, mix)
+        max_err, n_cmp = max(max_err, e), n_cmp + n
+    e, n = _check_instances(INSTANCE_CASES, 400)
+    max_err, n_cmp = max(max_err, e), n_cmp + n
     log(f"phase 2 step kernel: bitwise equal to the plain step in {n_cmp} "
-        f"field comparisons (max_abs_err {max_err})")
+        f"field comparisons (max_abs_err {max_err}), heights "
+        f"{sorted({EnvConfig(**f).height for f in FLAG_SETS})}, action "
+        f"mixes {[m for m, _, _ in MIX_CASES]}, every instance at "
+        f"{[(f, b) for f, b in INSTANCE_CASES]}")
     return max_err, last[EnvConfig(), B_MAIN]
 
 
 def phase_wide_step_kernel():
     max_err, n_cmp, last = _check_step_kernel(WIDE_CASES, WIDE_STEPS, 500)
+    e, n = _check_instances(WIDE_INSTANCE_CASES, 600)
+    max_err, n_cmp = max(max_err, e), n_cmp + n
     log(f"phase 2w wide step kernel: bitwise equal to the plain step at "
         f"widths {[f['width'] for f, _ in WIDE_CASES]} in {n_cmp} field "
-        f"comparisons (max_abs_err {max_err})")
+        f"comparisons (max_abs_err {max_err}), every instance at "
+        f"{list(WIDE_INSTANCE_CASES)}")
     return max_err, last
 
 
@@ -473,13 +538,17 @@ def phase_main_path(board: dict, label: str):
     return launches, envs
 
 
-def phase_timing(envs, board: dict, label: str, extra=()):
+def phase_timing(envs, board: dict, label: str, extra=(),
+                 step_batches=(B_MAIN,)):
     """For information only: env-steps/s of the rollout and each kernel's
     time at B = 4096 on ``board``: wrapper ms (CUDA events, Python and
     ctypes included) beside its plain version's, and device us
     (CUDA-graph replay) beside its bound, C with L2 evicted
-    (``kernel_timing.raster_device_times``). ``extra``: more
+    (``kernel_timing.raster_device_times``), A for two action mixes and
+    at each of ``step_batches``, with the instance that ran
+    (``kernel_timing.step_device_times``). ``extra``: more
     (cfg, rows, size) at which to time the raster kernels' device us."""
+    import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.core import engine as E
@@ -511,10 +580,15 @@ def phase_timing(envs, board: dict, label: str, extra=()):
             kt.sync_ms(lambda: cuda_raster.raster_accumulate(cfg, rows, acc), 200),
             kt.sync_ms(lambda: raster.raster_accumulate_plain(cfg, rows, acc), 50)),
     }
-    step_us = kt.device_us(lambda: cuda_step.step(cfg, s, a, r, key))
-    step_bound = kt.bound_us(kt.step_bytes(cfg, B_MAIN))
-    dev = {"step": dict(device_us=step_us, bound_us=step_bound,
-                        bound_share=step_bound / step_us)}
+    step_times = []
+    rng = np.random.RandomState(13)
+    for B in step_batches:
+        inputs = ((s, a, r, key) if B == B_MAIN
+                  else kt.step_inputs(cfg, B, rng, s.device))
+        t = kt.step_device_times(cfg, *inputs)
+        step_times.append(_step_reading(B, t))
+    dev = {"step": dict(next(t for t in step_times if t["B"] == B_MAIN),
+                        device_times=step_times)}
     dev.update(kt.raster_device_times(cfg, rows, 84))
     log(f"{label} (information only, {cfg.width}x{cfg.height}, B={B_MAIN}, "
         f"T={STEPS}): "
@@ -523,11 +597,29 @@ def phase_timing(envs, board: dict, label: str, extra=()):
         + "; kernel wrapper ms "
         + ", ".join(f"{k} {a:.5f} (plain {p:.5f})" for k, (a, p) in ms.items())
         + f"; device at 84 px: {_fmt_device(dev)}")
+    for t in step_times:
+        log(f"  {label}, step kernel A at B={t['B']}, {cfg.width}x"
+            f"{cfg.height}: {t['instance']} {t['device_us']:.2f} us (bound "
+            f"{t['bound_us']:.2f} us, {100 * t['bound_share']:.1f}%), all "
+            f"hard drops {t['hard_drop_device_us']:.2f} us"
+            + "".join(f"; {o['instance']} instance {o['device_us']:.2f} us, "
+                      f"all hard drops {o['hard_drop_device_us']:.2f} us"
+                      for o in t["others"])
+            + f"; copy_ of the same bytes {t['copy_stream_us']:.2f} us")
     for xcfg, xrows, size in extra:
         log(f"  {label}, raster kernels at {size} px, {xcfg.width}x"
             f"{xcfg.height}, B={xrows.shape[-1]}: "
             + _fmt_device(kt.raster_device_times(xcfg, xrows, size)))
     return rates, ms, dev
+
+
+def _step_reading(B, t):
+    """``kernel_timing.step_device_times`` as one record: the plan's
+    instance, the others as (instance, device_us, hard_drop_device_us)."""
+    return dict(B=B, **t["step"], copy_stream_us=t["copy_stream"]["device_us"],
+                others=[{k: o[k] for k in ("instance", "device_us",
+                                           "hard_drop_device_us")}
+                        for o in t["others"]])
 
 
 # ------------------------------------------------------------ trainer path
@@ -814,7 +906,8 @@ def main() -> int:
         w40 = EnvConfig(width=40, height=26)
         _, ms, dev = phase_timing(
             envs, {}, "phase 6 timing",
-            [(EnvConfig(), _random_rows(EnvConfig(), B_MAIN, rng), 160)])
+            [(EnvConfig(), _random_rows(EnvConfig(), B_MAIN, rng), 160)],
+            STEP_TIMED_B)
         _, wide_ms, wide_dev = phase_timing(
             wide_envs, WIDE_MAIN, "phase 6w wide timing",
             [(w40, _random_rows(w40, 1024, rng), 512)])

@@ -102,7 +102,8 @@ def load_library() -> ctypes.CDLL:
     """The kernels' library, built if needed, with its C entry points typed."""
     lib = ctypes.CDLL(str(build()["path"]))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tetris_step_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, vp]
+    # one packed record of the launch's arguments (ops/cuda_step._ARGS)
+    lib.tetris_step_launch.argtypes = [vp]
     lib.tetris_step_launch.restype = i
     lib.tetris_raster_launch.argtypes = [vp, i, i, i, vp, vp, vp, i, i, i, vp,
                                          i, i, vp]

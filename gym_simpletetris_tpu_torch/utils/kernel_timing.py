@@ -7,18 +7,23 @@
 - ``step_bytes`` / ``raster_bytes``: the bytes kernel A and kernels B, C
   must move; ``bound_us`` turns bytes into the least time at the H100's HBM
   rate;
+- ``step_device_times``: kernel A at one state, for two action mixes, with
+  its bound and a plain-stream yardstick; ``prefilled_state``,
+  ``step_inputs`` and ``mix_actions`` make the states and actions it is
+  timed and checked on;
 - ``raster_device_times``: kernels B and C at one shape, each beside its
   bound, with plain-stream yardsticks.
 
-``chip_smoke.py`` and ``tools/torch_raster_abba.py`` time the kernels with
-these. Everything here needs a CUDA card but ``bound_us`` and the byte
-counts.
+``chip_smoke.py``, ``tools/torch_step_abba.py`` and
+``tools/torch_raster_abba.py`` time the kernels with these. The timers need
+a CUDA card; ``bound_us``, the byte counts and the states do not.
 """
 
 from __future__ import annotations
 
 import statistics
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA's data sheet)
@@ -97,6 +102,99 @@ def step_bytes(cfg, B: int) -> int:
     read, reward written (4 bytes each), done written (1 byte), per env:
     397 B at 10 x 20."""
     return B * (12 * cfg.height * cfg.num_words + 157)
+
+
+def prefilled_state(cfg, B: int, rng, device):
+    """A cleared state whose lower rows (a random depth, up to half the
+    board) are full but for one open cell each, so random play clears
+    lines, scores and dies. Made from ``rng`` (numpy)."""
+    from ..core import engine as E
+    from ..core.state import init_state, rows_shape
+    s = init_state(cfg, B, int(rng.randint(0, 2 ** 31)), device)
+    s, _ = E.engine_clear(cfg, s, injected_r=torch.as_tensor(
+        rng.randint(1, 36, B), device=device))
+    H, nw = cfg.height, cfg.num_words
+    depth = rng.randint(0, H // 2 + 1, B)
+    filled = np.arange(H)[:, None] >= H - depth[None, :]       # [H, B]
+    hole = 4 + rng.randint(0, cfg.width, (H, B))     # the open cell's bit
+    rows = np.zeros((H, nw, B), np.uint32)
+    for w in range(nw):
+        valid = np.uint64((cfg.valid_mask >> (32 * w)) & 0xFFFFFFFF)
+        bit = np.where(hole >> 5 == w, np.uint64(1) << (hole & 31).astype(
+            np.uint64), np.uint64(0))
+        rows[:, w, :] = np.where(filled, valid & ~bit, 0).astype(np.uint32)
+    rows = rows.reshape(rows_shape(cfg, B))
+    return s.replace(rows=torch.from_numpy(rows.view(np.int32)).to(device))
+
+
+def mix_actions(mix: str, B: int, rng):
+    """A step's actions (numpy, made from ``rng``): "random"; "hard", every
+    env hard-drops, so every step locks; "walls", even envs push left and
+    odd ones right, a few rotate or hard-drop."""
+    if mix == "random":
+        return rng.randint(0, 7, B)
+    if mix == "hard":
+        return np.full(B, 2)
+    u = rng.rand(B)
+    a = np.where(np.arange(B) % 2 == 0, 0, 1)
+    return np.where(u > 0.9, 2, np.where(u < 0.15, rng.randint(4, 6, B), a))
+
+
+def step_inputs(cfg, B: int, rng, device, steps: int = 8):
+    """Kernel A's inputs as a rollout meets them: a prefilled state after
+    ``steps`` random steps, this step's random actions, the threefry draws
+    and the advanced key: (state, action, r_draw, key)."""
+    from ..core import engine as E
+    s = prefilled_state(cfg, B, rng, device)
+    for _ in range(steps):
+        s = E.engine_step(cfg, s, torch.as_tensor(rng.randint(0, 7, B),
+                                                  device=device)).state
+    key, r = E.spawn_draw(s, None)
+    a = torch.as_tensor(rng.randint(0, 7, B), dtype=torch.int32,
+                        device=device)
+    return s, a, r, key
+
+
+def step_device_times(cfg, state, action, r_draw, key, n: int = 20,
+                      runs=None) -> dict:
+    """Device us of kernel A on ``state`` beside its bytes bound, for two
+    action mixes: ``action`` (a rollout's random actions) and all hard drops
+    (every env locks, at lock_delay 0). ``runs`` maps instance names to
+    functions of the actions that launch the step; by default the port's
+    instances, the one its launch plan picks first. ``step`` times the
+    first of them; ``others`` the rest, to place the crossovers. Beside
+    them, as the yardstick of a plain stream over the same bytes (no PyTorch
+    call computes the step): ``copy_`` between two int32 buffers that
+    together hold the kernel's bytes."""
+    B = state.batch_size
+    if runs is None:
+        from ..ops import cuda_step
+        sms = torch.cuda.get_device_properties(
+            state.device).multi_processor_count
+        first = cuda_step.launch_plan(cfg.height, cfg.num_words, B,
+                                      sms).instance
+        names = [first] + [i for i in cuda_step.instances_for(
+            cfg.height, cfg.num_words) if i != first]
+        runs = {i: (lambda a, i=i: cuda_step._launch(cfg, state, a, r_draw,
+                                                     key, i))
+                for i in names}
+    nbytes = step_bytes(cfg, B)
+    src = torch.zeros(nbytes // 8, dtype=torch.int32, device=state.device)
+    dst = torch.empty_like(src)
+    out = {"copy_stream": dict(device_us=device_us(lambda: dst.copy_(src), n)),
+           "others": []}
+    hard = torch.full_like(action, 2)
+    bound = bound_us(nbytes)
+    for k, (inst, fn) in enumerate(runs.items()):
+        us = device_us(lambda: fn(action), n)
+        rec = dict(instance=inst, device_us=us, bound_us=bound,
+                   bound_share=bound / us,
+                   hard_drop_device_us=device_us(lambda: fn(hard), n))
+        if k == 0:
+            out["step"] = rec
+        else:
+            out["others"].append(rec)
+    return out
 
 
 def raster_bytes(cfg, B: int, size: int, accumulate: bool) -> int:

@@ -26,24 +26,47 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("flags", [
-    dict(), dict(width=9, height=12, lock_delay=3, high_scoring=True,
-                 penalise_holes_increase=True),
-    dict(width=24, advanced_clears=True, penalise_height_increase=True),
-    dict(width=25, penalise_height=True, penalise_holes=True),
-    dict(width=32, advanced_clears=True, lock_delay=1, step_reset=True),
-    dict(width=57, height=12, penalise_height_increase=True),
-    dict(width=100, reward_step=True),
-    dict(width=1024, height=6, high_scoring=True)])
-def test_step_kernel_matches_plain(dev, flags):
+@pytest.mark.parametrize("flags,B,mix", [
+    (dict(), 333, "random"),                     # a ragged tail tile
+    (dict(width=9, height=12, lock_delay=3, high_scoring=True,
+          penalise_holes_increase=True), 333, "random"),
+    (dict(width=24, advanced_clears=True, penalise_height_increase=True),
+     333, "random"),
+    (dict(width=25, penalise_height=True, penalise_holes=True), 333, "random"),
+    (dict(width=32, advanced_clears=True, lock_delay=1, step_reset=True),
+     333, "random"),
+    (dict(width=57, height=12, penalise_height_increase=True), 333, "random"),
+    (dict(width=100, reward_step=True), 333, "random"),
+    (dict(width=1024, height=6, high_scoring=True), 333, "random"),
+    # the warp instance's edges (a lane per row; anchor 32 by a second
+    # ballot) and the thread-per-env instance for taller boards
+    (dict(height=2), 333, "random"),
+    (dict(height=31, penalise_height=True), 333, "random"),
+    (dict(height=32, advanced_clears=True, penalise_holes=True), 333,
+     "random"),
+    (dict(height=33), 333, "random"),
+    (dict(height=40, penalise_height_increase=True), 333, "random"),
+    # batches at a warp's and a tile's edges
+    (dict(), 1, "random"), (dict(), 31, "random"), (dict(), 33, "random"),
+    (dict(height=32), 33, "random"),
+    # every env locks; pieces against both walls
+    (dict(), 333, "hard"), (dict(height=32, width=32), 333, "hard"),
+    (dict(), 333, "walls"), (dict(width=9, height=12), 333, "walls"),
+    (dict(width=40), 333, "walls"),
+    # NW = 33 at the warp instance's tallest board (135 KB of tile), and
+    # past the staged thread instance's tile (the global one)
+    (dict(width=1024, height=32, penalise_holes_increase=True), 333,
+     "random"),
+    (dict(width=1024, height=40, penalise_height=True), 33, "hard")])
+def test_step_kernel_matches_plain(dev, flags, B, mix):
+    from gym_simpletetris_tpu_torch.utils.kernel_timing import (
+        mix_actions, prefilled_state)
     cfg = EnvConfig(**flags)
-    B = 333                                      # a ragged tail block
     rng = np.random.RandomState(0)
-    s, _ = E.engine_clear(cfg, init_state(cfg, B, 0, dev))
-    s_k = s_p = s
+    s_k = s_p = prefilled_state(cfg, B, rng, dev)
     n = cuda_step.step.launches
     for t in range(60):
-        a = torch.as_tensor(rng.randint(0, 7, B), device=dev)
+        a = torch.as_tensor(mix_actions(mix, B, rng), device=dev)
         r = torch.as_tensor(rng.randint(1, 36, B), device=dev)
         o_k = E.engine_step(cfg, s_k, a, injected_r=r)
         o_p = E.engine_step_plain(cfg, s_p, a, injected_r=r)
@@ -56,6 +79,33 @@ def test_step_kernel_matches_plain(dev, flags):
         assert torch.equal(o_k.done, o_p.done), t
         s_k, s_p = o_k.state, o_p.state
     assert cuda_step.step.launches == n + 60
+
+
+@pytest.mark.parametrize("w,h,B", [(10, 20, 4096), (10, 20, 33),
+                                   (32, 20, 1000), (100, 31, 64),
+                                   (300, 31, 64), (10, 40, 300),
+                                   (57, 12, 129)])
+def test_step_kernel_instances_agree(dev, w, h, B):
+    """Every instance the board takes (the warp, the staged thread, the
+    global thread) on the same inputs, both action mixes: every output
+    bitwise equal. The staged thread instance runs 64 threads a block, and
+    32 at 300 x 31 (its tile would pass 48 KB at 64)."""
+    from gym_simpletetris_tpu_torch.utils.kernel_timing import step_inputs
+    cfg = EnvConfig(width=w, height=h, penalise_holes=True)
+    s, a, r, key = step_inputs(cfg, B, np.random.RandomState(B), dev)
+    forced = cuda_step.instances_for(h, cfg.num_words)
+    assert ("warp" in forced) == (h <= cuda_step.WARP_MAX_H)
+    assert "thread" in forced and "thread_global" in forced
+    for act in (a, torch.full_like(a, 2)):
+        o = [cuda_step._launch(cfg, s, act, r, key, inst) for inst in forced]
+        for x in o[1:]:
+            for f in FIELDS:
+                assert torch.equal(getattr(o[0].state, f),
+                                   getattr(x.state, f)), f
+            assert torch.equal(o[0].emitted_rows, x.emitted_rows)
+            assert torch.equal(o[0].reward.view(torch.int32),
+                               x.reward.view(torch.int32))
+            assert torch.equal(o[0].done, x.done)
 
 
 @pytest.mark.parametrize("w,h,size", [(10, 20, 84), (9, 12, 84), (24, 20, 84),

@@ -3,6 +3,7 @@ are the bytes of the operands the wrappers hand the kernels, each read once
 and each output written once. The timers themselves need the card and run in
 ``chip_smoke.py``."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +21,10 @@ def _nbytes(*tensors):
 
 
 @pytest.mark.parametrize("w,h,B", [(10, 20, 4096), (32, 20, 4096),
-                                   (9, 12, 7), (100, 6, 3)])
+                                   (9, 12, 7), (100, 6, 3), (10, 20, 512),
+                                   (10, 20, 3584), (10, 20, 16384),
+                                   (10, 20, 65536), (10, 32, 33),
+                                   (1024, 32, 5)])
 def test_step_bytes_are_its_operands(w, h, B):
     """Kernel A reads the state and writes it back, with the emitted rows,
     reads an action and a draw per env and writes a reward and a done."""
@@ -54,3 +58,49 @@ def test_bound_is_bytes_at_the_hbm_rate():
     # C at 84 px, B = 4096 on 10 x 20: 58.1 MB, 17.35 us
     assert kt.bound_us(kt.raster_bytes(EnvConfig(), 4096, 84, True)) == \
         pytest.approx(17.3526, abs=1e-4)
+
+
+@pytest.mark.parametrize("B,mb,us", [(4096, 1.626, 0.4854),
+                                     (16384, 6.505, 1.9416),
+                                     (65536, 26.018, 7.7665)])
+def test_step_bound_at_the_timed_batches(B, mb, us):
+    """Kernel A's bytes bound on 10 x 20: 397 bytes an env."""
+    n = kt.step_bytes(EnvConfig(), B)
+    assert n / 1e6 == pytest.approx(mb, abs=1e-3)
+    assert kt.bound_us(n) == pytest.approx(us, abs=1e-4)
+
+
+@pytest.mark.parametrize("w,h,B", [(10, 20, 64), (32, 20, 9), (57, 12, 5)])
+def test_prefilled_state_leaves_one_open_cell_a_filled_row(w, h, B):
+    cfg = EnvConfig(width=w, height=h)
+    s = kt.prefilled_state(cfg, B, np.random.RandomState(1), "cpu")
+    words = s.rows.reshape(h, cfg.num_words, B).numpy().view(np.uint32)
+    valid = cfg.valid_words().view(np.uint32)[None, :, None]
+    popcount = np.vectorize(lambda v: bin(int(v)).count("1"))
+    cells = popcount(words & valid).sum(axis=1)                # [H, B]
+    filled = cells > 0
+    assert set(np.unique(cells)) <= {0, w - 1}           # full but one cell
+    assert not (words & ~valid).any()                    # no guard bits
+    depth = filled.sum(axis=0)
+    assert (depth <= h // 2).all() and depth.max() > 0
+    assert (filled == (np.arange(h)[:, None] >= h - depth[None, :])).all()
+
+
+def test_step_inputs_come_from_play():
+    cfg = EnvConfig()
+    s, a, r, key = kt.step_inputs(cfg, 32, np.random.RandomState(2), "cpu")
+    assert a.dtype == r.dtype == torch.int32 and a.shape == r.shape == (32,)
+    assert ((a >= 0) & (a < 7)).all() and (r >= 1).all()
+    assert (s.time == 8).all() and key.shape == (2,)
+
+
+def test_action_mixes():
+    rng = np.random.RandomState(3)
+    B = 1000
+    assert set(kt.mix_actions("random", B, rng)) == set(range(7))
+    assert (kt.mix_actions("hard", B, rng) == 2).all()
+    a = kt.mix_actions("walls", B, rng)
+    pushes = a[(a == 0) | (a == 1)]
+    assert set(a) == {0, 1, 2, 4, 5}
+    assert (pushes == np.arange(B)[(a == 0) | (a == 1)] % 2).all()
+    assert 0.5 < len(pushes) / B < 0.9
