@@ -21,7 +21,13 @@ must clear at least 4 lines per episode), and PPO updates through
 ``run_ppo`` for ram and grayscale, with their kernel launches counted; each
 is held bitwise to a run on the plain step and raster (heuristic and PPO
 collection whole, the evaluation's first 500 steps), and kernels A and B to
-their plain versions at the trainer's batch sizes and env flags. One line per phase; then a JSON line of the
+their plain versions at the trainer's batch sizes and env flags. Then the
+Rainbow DQN path through ``run_dqn`` (7f ram: PER, 3-step, dueling at the
+defaults, 1024 envs and a 262,144-transition ring; 7g grayscale: NatureDQN
+with C51, dueling, noisy, 4 stacked frames, 256 envs, a 65,536-transition
+ring) and the dqn policy of ``evaluate`` on 7f's checkpoint (7h); one more
+chunk of each from its final state is held bitwise to a run on the plain
+step and raster with deterministic algorithms on. One line per phase; then a JSON line of the
 kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure, or no CUDA device, exits nonzero without that line. Imports
@@ -41,6 +47,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 4096
 STEPS = 256
+CHECK_STEPS = 160   # phase 2's steps per flag set (cut from 256 for time)
 FLAG_SETS = (
     dict(),
     dict(reward_step=True, advanced_clears=True, penalise_height=True,
@@ -263,7 +270,7 @@ def _check_instances(cases, seed):
 def phase_step_kernel():
     from gym_simpletetris_tpu_torch import EnvConfig
     cases = [(flags, (B_MAIN, 1000)) for flags in FLAG_SETS]
-    max_err, n_cmp, last = _check_step_kernel(cases, STEPS, 0)
+    max_err, n_cmp, last = _check_step_kernel(cases, CHECK_STEPS, 0)
     for k, (mix, flags, batches) in enumerate(MIX_CASES):
         e, n, _ = _check_step_kernel([(flags, batches)], MIX_STEPS,
                                      300 + k, mix)
@@ -635,6 +642,16 @@ PPO_RAM = ["--num-envs", "1024", "--rollout-len", "64", "--minibatches", "8",
            "--epochs", "2", "--shuffle-block", "64", "--updates", "3"]
 PPO_GRAY = ["--obs", "grayscale", "--num-envs", "256", "--rollout-len", "32",
             "--minibatches", "4", "--updates", "1"]
+# run_dqn at its defaults (1024 envs, a 262,144-transition ring, batch 1024,
+# learning from 4096 transitions, RamDQN 512 / 256) with Rainbow's PER,
+# 3-step returns and dueling; and the grayscale Rainbow on NatureDQN
+DQN_RAM = ["--prioritized", "--n-step", "3", "--dueling", "--chunk", "16",
+           "--total-steps", "48"]
+DQN_GRAY = ["--obs", "grayscale", "--num-envs", "256", "--frame-stack", "4",
+            "--n-step", "3", "--prioritized", "--distributional", "--dueling",
+            "--noisy", "--learn-every", "4", "--buffer", "65536", "--chunk",
+            "32", "--total-steps", "64"]
+DQN_EVAL_STEPS = 200
 
 
 def _launches() -> dict:
@@ -879,7 +896,221 @@ def phase_trainer_path():
     return phase_trainer_kernels()
 
 
+def _clone(x):
+    """A deep copy of a trainer state's tensors (the replay ring is written
+    in place, so each run from one state needs its own copy)."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+def _same_dqn_state(a, b):
+    """Names of the fields of two DQN states that differ."""
+    import torch
+    pairs = {"env_state.rows": (a.env_state.rows, b.env_state.rows),
+             "obs": (a.obs, b.obs), "key": (a.key, b.key),
+             "step": (a.step, b.step)}
+    for f in ("obs", "next_obs", "action", "reward", "discount", "done",
+              "priority", "max_p", "ptr", "filled_slots"):
+        pairs["replay." + f] = (getattr(a.replay, f), getattr(b.replay, f))
+    for k in a.params:
+        pairs["params." + k] = (a.params[k], b.params[k])
+    if a.window is not None:
+        for k in a.window:
+            pairs["window." + k] = (a.window[k], b.window[k])
+    return [n for n, (x, y) in pairs.items() if not torch.equal(x, y)]
+
+
+def _device_busy_share(fn):
+    """(wall s, share of it the card spent in kernels, device ops) of one
+    call of ``fn`` under torch.profiler; the share is None when the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kernels) / 1e6
+    return wall, (busy / wall if busy > 0 else None), len(kernels)
+
+
+def _check_dqn(label, args, ckpt=None):
+    """``run_dqn`` with ``args`` on the card, then from its final state one
+    more chunk: timed whole, timed in its halves (a sync after each), under
+    torch.profiler, and then twice with deterministic algorithms on, with
+    the kernels and with the plain step and raster: the two must end in
+    the same state bit for bit (ring rows, env, params). Returns a record
+    and the launches of the run and the timed chunk."""
+    import io
+    import math
+    import torch
+    from gym_simpletetris_tpu_torch.train import dqn, run_dqn
+    argv = args + ["--device", "cuda", "--seed", "0"] + (
+        ["--ckpt", ckpt] if ckpt else [])
+    n0 = _launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = run_dqn.main(argv)
+    run_s = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    parsed = run_dqn.parse_args(argv)
+    want = parsed.total_steps // parsed.chunk
+    if len(lines) != want:
+        raise PhaseError(f"{label}: {len(lines)} metric lines, want {want}")
+    for rec in lines:
+        bad = [k for k, v in rec.items() if not math.isfinite(v)]
+        if bad:
+            raise PhaseError(f"{label}: non-finite metrics {bad}")
+    if not lines[-1]["loss"] > 0:
+        raise PhaseError(f"{label}: the learner did not run: {lines[-1]}")
+    cfg = run_dqn.make_config(parsed)
+    _, _, chunk_fn, _ = dqn.make_train(cfg, "cuda")
+    # the target still holds the init parameters: it syncs every 500
+    # learner steps, and fewer have run
+    moved = sum(float((state.params[k] - v).abs().sum())
+                for k, v in state.target_params.items())
+    if int(state.learn_steps) >= cfg.target_update_period or not moved > 0:
+        raise PhaseError(f"{label}: the parameters did not move")
+    n = parsed.chunk
+    parts = {"run_dqn": run_s}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = round(now - t_part, 2)
+        t_part = now
+
+    start = _clone(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1, _ = chunk_fn(_clone(start), n)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    part("timed chunk")
+    # the same chunk in its two halves, a sync after each
+    s, actor_s, learner_s = _clone(start), 0.0, 0.0
+    filled, ls = int(s.replay.filled_slots), int(s.learn_steps)
+    for t in range(n):
+        t0 = time.perf_counter()
+        s, (k_sample, k_nlearn, _) = chunk_fn.actor_half(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        actor_s += t1 - t0
+        filled = min(filled + 1, cfg.buffer_capacity // cfg.num_envs)
+        if (t % cfg.learn_every == cfg.learn_every - 1
+                and filled * cfg.num_envs >= cfg.learn_starts):
+            s, _ = chunk_fn.learner_half(s, k_sample, k_nlearn, ls)
+            ls += 1
+            torch.cuda.synchronize()
+            learner_s += time.perf_counter() - t1
+    del s, s1
+    part("halves")
+    # a short window (the trace of a whole chunk takes minutes to read)
+    n_prof = max(4, 2 * cfg.learn_every)
+    wall, busy, n_ops = _device_busy_share(
+        lambda: chunk_fn(_clone(start), n_prof))
+    part("profiled window")
+    n1 = _launches()
+    # one chunk with the kernels and one on the plain versions, both from
+    # the final state, deterministic algorithms on
+    torch.use_deterministic_algorithms(True)
+    try:
+        s_k, _ = chunk_fn(_clone(start), n)
+        part("deterministic chunk")
+        with _plain_path():
+            s_p, _ = chunk_fn(_clone(start), n)
+        part("deterministic plain chunk")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = _same_dqn_state(s_k, s_p)
+    if diff:
+        raise PhaseError(f"{label}: a chunk with the kernels != with the "
+                         f"plain versions in {diff[:6]}")
+    dones = int(s_k.replay.done.sum())
+    del s_k, s_p, start
+    return dict(lines=lines, run_s=run_s, moved=moved, chunk=n,
+                chunk_s=chunk_s, actor_s=actor_s, learner_s=learner_s,
+                sps=cfg.num_envs * n / chunk_s, profiled_wall_s=wall,
+                profiled_steps=n_prof,
+                busy_share=busy, device_ops=n_ops, dones=dones, parts=parts,
+                launches={k: n1[k] - n0[k] for k in n1})
+
+
+def phase_dqn(tmp):
+    """7f ram and 7g grayscale Rainbow DQN through ``run_dqn``, 7h the
+    greedy dqn policy on 7f's checkpoint. Launch counts from 0 before these
+    phases, without the comparison runs; step and raster must have
+    launched. Returns the launches."""
+    import torch
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.train.evaluate import make_action_fn
+    for fn in _counters().values():
+        fn.launches = 0
+    ckpt = os.path.join(tmp, "dqn_ram.pt")
+    launches = {}
+    for label, args, path in (("7f dqn ram", DQN_RAM, ckpt),
+                              ("7g dqn grayscale Rainbow", DQN_GRAY, None)):
+        r = _check_dqn(label, args, path)
+        launches = {k: launches.get(k, 0) + v for k, v in r["launches"].items()}
+        busy = ("not measured (the profiler saw no device time)"
+                if r["busy_share"] is None else
+                f"{100 * (1 - r['busy_share']):.1f}% idle")
+        log(f"phase {label}: metrics finite, params moved (sum |dp| "
+            f"{r['moved']:.4f}); run_dqn {len(r['lines'])} chunks in "
+            f"{r['run_s']:.2f} s (init and prefill included); one more chunk "
+            f"of {r['chunk']} steps: {r['chunk_s']:.3f} s, "
+            f"{r['sps']:.0f} env-steps/s; its halves with a sync after each: "
+            f"actor {r['actor_s']:.3f} s + learner {r['learner_s']:.3f} s; "
+            f"{r['profiled_steps']} steps from the same state under "
+            f"torch.profiler {r['profiled_wall_s']:.3f} s, device {busy}, "
+            f"{r['device_ops']} device ops (a clone of the state "
+            f"included); the chunk with deterministic algorithms bitwise equal "
+            f"on the plain step and raster (ring rows, env, params; "
+            f"{r['dones']} dones in the ring); kernel launches "
+            f"{r['launches']}; seconds {r['parts']}; last line "
+            f"{json.dumps(r['lines'][-1])}")
+    cfg = EnvConfig(obs_type="ram", auto_reset=True, reward_step=True)
+    fn = make_action_fn("dqn", cfg, TRAIN_B, ckpt, device="cuda")
+    n0 = _launches()
+    t0 = time.perf_counter()
+    run = _play(cfg, fn, DQN_EVAL_STEPS)
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    launches = {k: launches[k] + n1[k] - n0[k] for k in n1}
+    with _plain_path():
+        _same_play("dqn greedy eval", run, _play(cfg, fn, DQN_EVAL_STEPS))
+    st = run[3]
+    log(f"phase 7h dqn greedy eval of 7f's checkpoint: {DQN_EVAL_STEPS} "
+        f"steps at B={TRAIN_B} in {secs:.2f} s, actions/rewards/dones "
+        f"bitwise equal with the kernels and with the plain step; "
+        f"{int(st.episodes.sum())} episodes, {int(st.total_lines.sum())} "
+        f"lines; {len(torch.unique(run[0]))} distinct actions")
+    log(f"phase 7 dqn path: kernel launches {launches}")
+    for k in ("step", "raster"):
+        if launches[k] <= 0:
+            raise PhaseError(f"kernel {k} was not launched on the DQN path")
+    return launches
+
+
 def main() -> int:
+    # deterministic cuBLAS for the DQN phases' kernel-against-plain chunk;
+    # it must be set before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError as e:
@@ -889,17 +1120,29 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    secs, t_last = {}, time.perf_counter()
+
+    def took(name):
+        nonlocal t_last
+        now = time.perf_counter()
+        secs[name] = round(now - t_last, 1)
+        t_last = now
+
     try:
         _import_port()
         card = phase_device()
+        took("1")
         step_err, board_rows = phase_step_kernel()
         raster_err = phase_raster_kernels(board_rows)
+        took("2-3")
         wide_step_err, wide_boards = phase_wide_step_kernel()
         wide_raster_err = phase_wide_raster_kernels(wide_boards)
+        took("2w-3w")
         phase_golden()
         launches, envs = phase_main_path({}, "phase 5 main path")
         wide_launches, wide_envs = phase_main_path(
             WIDE_MAIN, "phase 5w wide main path")
+        took("4-5w")
         import numpy as np
         from gym_simpletetris_tpu_torch import EnvConfig
         rng = np.random.RandomState(12)
@@ -911,7 +1154,15 @@ def main() -> int:
         _, wide_ms, wide_dev = phase_timing(
             wide_envs, WIDE_MAIN, "phase 6w wide timing",
             [(w40, _random_rows(w40, 1024, rng), 512)])
+        took("6-6w")
         trainer_err = phase_trainer_path()
+        took("7a-7e")
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix=".dqn_smoke_",
+                                         dir=ROOT) as tmp:
+            dqn_launches = phase_dqn(tmp)
+        took("7f-7h")
+        log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
         traceback.print_exc()
@@ -920,8 +1171,9 @@ def main() -> int:
     pkg = "gym_simpletetris_tpu_torch/csrc/"
     kernels = []
     for suffix, n, err, t, d in (
-            ("", launches, {k: max(v, trainer_err.get(k, 0.0)) for k, v in
-                            dict(raster_err, step=step_err).items()}, ms, dev),
+            ("", {k: v + dqn_launches[k] for k, v in launches.items()},
+             {k: max(v, trainer_err.get(k, 0.0)) for k, v in
+              dict(raster_err, step=step_err).items()}, ms, dev),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),
              wide_ms, wide_dev)):
         for name, src, replaces in (

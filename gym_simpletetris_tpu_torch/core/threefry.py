@@ -1,5 +1,5 @@
 """threefry2x32 in plain PyTorch: the engine's spawn-draw stream and the
-draws of the PPO trainer.
+draws of the PPO and DQN trainers.
 
 Bit-for-bit the stream of ``jax.random`` with threefry keys and
 ``jax_threefry_partitionable`` on (the default of JAX 0.9):
@@ -9,8 +9,12 @@ Bit-for-bit the stream of ``jax.random`` with threefry keys and
 - ``fold_in(key, data)`` is ``threefry2x32(key, (0, data))``;
 - ``random_bits(key, shape)`` is ``jax.random.bits(key, shape, uint32)``:
   the element at flat index i is ``x0 ^ x1`` of ``threefry2x32(key, (0, i))``;
-- ``uniform``, ``gumbel`` (mode "low"), ``categorical`` and ``permutation``
-  follow ``jax/_src/random.py`` on top of those bits.
+- ``uniform``, ``gumbel`` (mode "low"), ``categorical``, ``permutation``,
+  ``normal`` and ``randint`` follow ``jax/_src/random.py`` on top of those
+  bits, the float functions under them (``log_f32``, ``log1p_f32``,
+  ``erf_inv_f32``, ``sqrt_f32``) as XLA's CPU backend computes them;
+- ``flax_rng(key, *path, counter)`` is the key flax's ``make_rng`` derives
+  for a module.
 
 Words are held in int64 tensors with values in [0, 2**32) and masked after
 every add and shift, so no signed 32-bit overflow or sign-extending right
@@ -19,6 +23,7 @@ shift is ever involved. Keys are int32[2] tensors carrying the uint32 bits.
 
 from __future__ import annotations
 
+import hashlib
 import math
 
 import torch
@@ -133,6 +138,124 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     y = _fma(_fma(y, x3, y1), x3, y2)
     y = _fma(y, x3, e * -2.12194440e-4)
     return ((m - x2 * 0.5) + y) + e * 0.693359375
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root correctly rounded, as XLA computes it.
+    ``torch.sqrt`` on a CPU with AVX-512 is not (about 6 values in 1000
+    differ by an ulp); the float64 root rounded to float32 is, since 53 >=
+    2 * 24 + 2."""
+    return torch.sqrt(x.double()).float()
+
+
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+
+
+def _poly_fma(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """Horner's rule from the highest coefficient, each step one fused
+    multiply-add, with the coefficients rounded to float32."""
+    p = torch.zeros_like(x)
+    for c in coeffs:
+        p = _fma(p, x, c)
+    return p
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log(1 + x)`` as XLA's CPU backend computes it (its elemental
+    ``log-plus-one``): the Cephes rational approximation, fused, where
+    ``|x| < sqrt(2) - 1``, else ``log_f32(x + 1)``; -inf at -1. For
+    x >= -1 with x + 1 zero or a normal float32."""
+    x2 = x * x
+    small = _poly_fma(x, _LOG1P_NUM) / _poly_fma(x, _LOG1P_DEN)
+    small = x + _fma(-0.5, x2, (x * x2) * small)
+    is_small = x.abs() < 0.41421356237309504880
+    big = log_f32(torch.where(is_small | (x == -1.0), torch.ones_like(x),
+                              x + 1.0))
+    big = torch.where(x == -1.0, float("-inf"), big)
+    return torch.where(is_small, small, big)
+
+
+# Giles' single-precision erfinv coefficients, for w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``lax.erf_inv`` as XLA's CPU backend computes it: Giles'
+    polynomial in ``w = -log1p(-x**2)`` with its multiply-adds fused, and
+    +-inf at +-1. ``torch.erfinv`` differs from it in more than half the
+    values, by up to 82 ulp."""
+    w = -log1p_f32(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
+    f32 = lambda c: torch.tensor(c, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, f32(_ERFINV_LT5[0]), f32(_ERFINV_GE5[0]))
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, torch.where(lt, f32(lo), f32(hi)))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_F32_ABOVE_M1 = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` for u
+    uniform in (-1, 1)."""
+    u = uniform(key, shape, _F32_ABOVE_M1, 1.0)
+    return float(torch.tensor(math.sqrt(2), dtype=torch.float32)) \
+        * erf_inv_f32(u)
+
+
+def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32: two
+    32-bit draws from a split of the key folded into the span
+    ``maxval - minval`` (1 where maxval <= minval) in uint32 arithmetic.
+    ``minval`` / ``maxval`` may be ints or int tensors that broadcast to
+    ``shape``. int32."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    dev = key.device
+    mn = torch.as_tensor(minval, device=dev).to(torch.int64)
+    mx = torch.as_tensor(maxval, device=dev).to(torch.int64)
+    span = torch.where(mx <= mn, torch.ones_like(mx), (mx - mn) & _M32)
+    mult = torch.full_like(span, 2 ** 16) % span
+    # wraps as jax's uint32 product does: 0 for spans above 2**16
+    mult = ((mult * mult) & _M32) % span
+    off = (_mul32(hi % span, mult) + lo % span) & _M32
+    return (mn + off % span).to(torch.int32)
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b mod 2**32`` for a, b in [0, 2**32) without int64 overflow:
+    a in 16-bit halves."""
+    return ((((a >> 16) * b) & _M32) << 16) + (a & 0xFFFF) * b & _M32
+
+
+def flax_rng(key: torch.Tensor, *path) -> torch.Tensor:
+    """The key flax's ``Scope.make_rng`` gives a module: ``fold_in`` of the
+    first 4 bytes (big-endian) of the SHA-1 of the module path's names and
+    the rng counter, in that order, with no separator (flax's default,
+    ``flax_fix_rng_separator`` off). ``flax_rng(k, "dense0", 1)`` is the
+    first ``make_rng("noise")`` of the module ``dense0`` under
+    ``apply(..., rngs={"noise": k})``."""
+    m = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            m.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, "big"))
+    return fold_in(key, int.from_bytes(m.digest()[:4], "big"))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

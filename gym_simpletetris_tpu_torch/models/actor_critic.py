@@ -44,6 +44,18 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
         nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           dtype: torch.dtype, round_sum: bool = True) -> torch.Tensor:
+    """``x @ weight.T + bias`` as jitted flax computes it in ``dtype``: the
+    product of rounded operands summed in float32 and rounded once, then the
+    bias added in ``dtype``; ``round_sum=False`` adds the bias in float32
+    and returns float32."""
+    y = (x.to(dtype).float() @ weight.to(dtype).float().T).to(dtype)
+    if round_sum:
+        return y + bias.to(dtype)
+    return y.float() + bias.to(dtype).float()
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: weight [out, in] (the flax kernel transposed)."""
 
@@ -59,11 +71,7 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, round_sum: bool = True) -> torch.Tensor:
         """``round_sum=False`` adds the bias in float32 and returns float32."""
-        dt = self.dtype
-        y = (x.to(dt).float() @ self.weight.to(dt).float().T).to(dt)
-        if round_sum:
-            return y + self.bias.to(dt)
-        return y.float() + self.bias.to(dt).float()
+        return linear(x, self.weight, self.bias, self.dtype, round_sum)
 
 
 @contextlib.contextmanager
@@ -184,12 +192,22 @@ class ActorCritic(nn.Module):
         return logits, value.float()
 
 
+# flax leaf name -> (port name, is a kernel)
+_FLAX_LEAVES = {"kernel": ("weight", True), "bias": ("bias", False),
+                "kernel_mu": ("weight_mu", True), "bias_mu": ("bias_mu", False),
+                "kernel_sigma": ("weight_sigma", True),
+                "bias_sigma": ("bias_sigma", False)}
+
+
 def params_from_flax(tree) -> dict:
-    """A flax ActorCritic parameter tree (nested dicts of numpy arrays, with
-    or without the outer ``"params"`` key) -> a state_dict of float32 CPU
-    tensors for ``ActorCritic``. A Dense kernel [in, out] becomes a weight
-    [out, in], a Conv kernel HWIO an OIHW weight; the flax trunk module
-    (``MlpTrunk_0`` / ``ConvTrunk_0``) is ``trunk``."""
+    """A flax ActorCritic or Q-network parameter tree (nested dicts of
+    numpy arrays, with or without the outer ``"params"`` key) -> a
+    state_dict of float32 CPU tensors for ``ActorCritic`` or
+    ``models.dqn``'s networks. A Dense kernel [in, out] becomes a weight
+    [out, in], a Conv kernel HWIO an OIHW weight, a NoisyDense's
+    ``kernel_mu`` / ``kernel_sigma`` the weights ``weight_mu`` /
+    ``weight_sigma`` likewise; the flax trunk module (``MlpTrunk_0`` /
+    ``ConvTrunk_0``) is ``trunk``."""
     if "params" in tree:
         tree = tree["params"]
     out = {}
@@ -202,13 +220,11 @@ def params_from_flax(tree) -> dict:
         a = np.asarray(node, dtype=np.float32)
         mods = ["trunk" if p in ("MlpTrunk_0", "ConvTrunk_0") else p
                 for p in path[:-1]]
-        if path[-1] == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-            name = "weight"
-        elif path[-1] == "bias":
-            name = "bias"
-        else:
+        if path[-1] not in _FLAX_LEAVES:
             raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+        name, kernel = _FLAX_LEAVES[path[-1]]
+        if kernel:
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
         out[".".join(mods + [name])] = torch.tensor(a)    # a copy
 
     walk(tree, ())

@@ -1,0 +1,483 @@
+"""Rainbow DQN actor-learner on a torch device (port of
+``gym_simpletetris_tpu.train.dqn``), on the legacy replay ring.
+
+Double DQN, dueling heads, C51, NoisyNets, n-step returns and prioritized
+replay, each switchable in ``DQNConfig``; epsilon is annealed linearly. One
+actor step takes a batched env step with its observation (on CUDA one
+launch of the step kernel, and for images one of the raster kernel:
+``api/env.step_fn``) and inserts one slot row into the replay ring; one
+learner step samples a batch, takes the TD (or C51) loss, its gradient and
+an Adam step, and syncs the target every ``target_update_period`` learner
+steps. The JAX ``lax.scan`` / ``lax.cond`` are a Python loop and a Python
+branch: the warm-up gate and the target sync read host-side counters, so a
+chunk reads the card once, at its start.
+
+The key stream is split exactly as in the JAX trainer, and every draw is
+``jax.random``'s (``core/threefry``): from the same init state and
+parameters the actions, rewards, dones and replay rows are the JAX
+trainer's bit for bit up to the first learner step. The learner's float
+sums run in torch's order, so its loss and parameters agree to about 1e-6
+(``tests/test_torch_dqn.py`` holds them to 1e-4). A fresh init draws the
+parameters from a ``torch.Generator`` seeded by the init key (flax's
+initialisers, not its draws). The frame-ring and obs-ring layouts
+(``frame_ring=True``) are not ported yet: ROADMAP Queue 1 item 11d.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from ..api import spaces
+from ..api.env import check_device, reset_fn, step_fn
+from ..core import threefry
+from ..core.config import EnvConfig
+from ..core.engine import NUM_ACTIONS
+from ..core.state import EnvState, _key_tensor
+from ..models.dqn import build_q_network
+from .ppo import _seed_of, adam_update, clip_by_global_norm
+from .replay import (ReplayState, _recip_f32, _sum_f32, replay_init,
+                     replay_insert, replay_sample, replay_sample_prioritized,
+                     replay_sample_slots, replay_sample_slots_prioritized,
+                     replay_update_priority, replay_update_priority_slots)
+
+_LEARNER_KEYS = ("loss", "mean_q", "td_abs_err")
+
+
+@dataclasses.dataclass(frozen=True)
+class DQNConfig:
+    env: EnvConfig = EnvConfig(obs_type="ram", auto_reset=True,
+                               reward_step=True, penalise_holes=True)
+    num_envs: int = 1024
+    buffer_capacity: int = 262144
+    learn_batch: int = 1024
+    gamma: float = 0.99
+    lr: float = 3e-4
+    target_update_period: int = 500    # learner steps between target syncs
+    learn_starts: int = 4096           # transitions before learning begins
+    eps_start: float = 1.0
+    eps_end: float = 0.05
+    eps_decay_steps: int = 100_000
+    double_dqn: bool = True
+    dueling: bool = False
+    max_grad_norm: float = 10.0
+    frame_stack: int = 1   # > 1 stacks the last K obs on a trailing axis
+    n_step: int = 1        # > 1 inserts n-step returns (rolling window)
+    prioritized: bool = False
+    per_alpha: float = 0.6
+    per_beta0: float = 0.4
+    per_beta_steps: int = 100_000
+    per_eps: float = 1e-3
+    distributional: bool = False   # C51 on a fixed support
+    num_atoms: int = 51
+    v_min: float = -110.0
+    v_max: float = 110.0
+    noisy: bool = False    # NoisyNet layers; no epsilon-greedy
+    noisy_shared_selection: bool = False  # one online noise draw for the
+                           # loss forward and the double-DQN selection
+    learn_every: int = 1   # actor steps per learner update
+    frame_ring: bool = False   # the frame / obs ring: not ported (item 11d)
+    ring_stacks: bool = False
+    sample_slots: bool = False  # learner batches are whole slot rows
+
+    def __post_init__(self):
+        if self.buffer_capacity % self.num_envs:
+            raise ValueError("buffer_capacity must be a multiple of num_envs")
+        if self.learn_every < 1:
+            raise ValueError("learn_every must be >= 1")
+        if self.ring_stacks and not self.frame_ring:
+            raise ValueError("ring_stacks requires frame_ring=True")
+        if self.sample_slots:
+            if self.learn_batch % self.num_envs:
+                raise ValueError("sample_slots needs learn_batch to be a "
+                                 "multiple of num_envs (whole slot rows)")
+            if self.frame_ring and self.frame_stack > 1 and \
+                    not self.ring_stacks:
+                raise ValueError("sample_slots on the frame ring needs "
+                                 "ring_stacks=True or frame_stack == 1 "
+                                 "(per-env stack clamping would reintroduce "
+                                 "the gathers it removes)")
+
+
+@dataclasses.dataclass
+class DQNState:
+    params: Dict[str, torch.Tensor]         # Q-network state_dict, float32
+    target_params: Dict[str, torch.Tensor]
+    opt_state: dict                         # {"count", "mu", "nu"}
+    replay: ReplayState
+    env_state: EnvState
+    obs: torch.Tensor          # current observation (stack) [num_envs, ...]
+    key: torch.Tensor          # int32[2] threefry key data
+    step: torch.Tensor         # int32[], actor steps taken
+    learn_steps: torch.Tensor  # int32[]
+    window: Optional[dict] = None   # n-step pending transitions [n-1, B, ...]
+
+    def replace(self, **kw) -> "DQNState":
+        return dataclasses.replace(self, **kw)
+
+
+def support_f32(v_min: float, v_max: float, num_atoms: int,
+                device="cpu") -> torch.Tensor:
+    """The C51 support, ``jnp.linspace(v_min, v_max, num_atoms)``'s formula
+    in float32: ``start * (1 - t) + stop * t`` for t = i / (n - 1), the last
+    point ``stop``. About half the points sit an ulp or two from the JAX
+    support's (XLA fuses it in an order not emulated here)."""
+    div = num_atoms - 1
+    t = torch.arange(div, dtype=torch.float32, device=device) / float(div)
+    out = v_min * (1 - t) + v_max * t
+    return torch.cat([out, out.new_tensor([v_max])])
+
+
+def project_distribution(probs: torch.Tensor, tz: torch.Tensor, v_min: float,
+                         v_max: float, num_atoms: int) -> torch.Tensor:
+    """Project a categorical distribution onto the fixed support (C51):
+    each Bellman-shifted atom ``tz`` [B, n] splits its mass ``probs``
+    [B, n] linearly between its two support neighbours, as two one-hot
+    expansions summed over the source atoms (no scatter), in XLA's order:
+    bitwise equal to the JAX function on XLA's CPU backend."""
+    dz = (v_max - v_min) / (num_atoms - 1)
+    b = (torch.clamp(tz, v_min, v_max) - v_min) / dz
+    low = torch.floor(b)
+    up = torch.clamp(low + 1.0, max=num_atoms - 1.0)
+    w_up = b - low
+    low_oh = F.one_hot(low.long(), num_atoms).to(probs.dtype)
+    up_oh = F.one_hot(up.long(), num_atoms).to(probs.dtype)
+    mass = ((probs * (1.0 - w_up))[..., None] * low_oh
+            + (probs * w_up)[..., None] * up_oh)        # [B, source, target]
+    return _sum_f32(mass.transpose(1, 2))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: exp(x - max) over its sum,
+    summed in XLA's order."""
+    e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    return e / _sum_f32(e)[..., None]
+
+
+def _select(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[b, index[b]]`` along axis 1 as a one-hot product and sum: exact,
+    and its gradient is a product, not a scatter."""
+    oh = F.one_hot(index.long(), x.shape[1]).to(x.dtype)
+    if x.dim() == 3:
+        oh = oh[..., None]
+    return (x * oh).sum(dim=1)
+
+
+def make_train(cfg: DQNConfig, device="cuda"):
+    """Returns (init_fn, train_step_fn, train_chunk_fn, network) on
+    ``device`` ("cpu" or "cuda"; a CUDA request without a card raises).
+
+    init_fn(key) -> DQNState                # key: int seed or 2 key words
+    train_step_fn(state) -> (state, metrics)           # one actor+learner step
+    train_chunk_fn(state, n) -> (state, metrics_mean)  # n actor steps
+
+    ``train_chunk_fn.actor_half(state)`` and ``.learner_half(state,
+    k_sample, k_nlearn)`` are its two halves, for timing them apart. The
+    replay ring is written in place (``train/replay.py``).
+    """
+    device = check_device(device)
+    ecfg = cfg.env
+    if not ecfg.auto_reset:
+        raise ValueError("DQN training requires env auto_reset=True")
+    if cfg.frame_ring:
+        raise NotImplementedError(
+            "the frame-ring / obs-ring replay layouts (frame_ring=True) are "
+            "not ported yet: ROADMAP Queue 1 item 11d")
+    base_shape = spaces.observation_space(ecfg).shape
+    k = cfg.frame_stack
+    obs_shape = base_shape + (k,) if k > 1 else base_shape
+    atoms = cfg.num_atoms if cfg.distributional else 0
+    build = lambda: build_q_network(ecfg.obs_type, obs_shape,
+                                    dueling=cfg.dueling, num_atoms=atoms,
+                                    noisy=cfg.noisy)
+    network = build().to(device)
+    support = support_f32(cfg.v_min, cfg.v_max, cfg.num_atoms, device)
+    B = cfg.num_envs
+    slots = cfg.buffer_capacity // B
+
+    def apply_net(params, obs, nk=None):
+        """Forward pass; a noisy network draws fresh noise from ``nk``."""
+        return functional_call(network, params,
+                               (obs, nk if cfg.noisy else None))
+
+    def q_values(params, obs, nk=None):
+        """Scalar Q [B, A]: the output, or E[Z] under the C51 head."""
+        out = apply_net(params, obs, nk)
+        if not cfg.distributional:
+            return out
+        return _sum_f32(_softmax(out) * support)
+
+    def _stack_reset(obs):
+        return obs[..., None].expand(obs.shape + (k,)).clone() if k > 1 \
+            else obs
+
+    def _stack_next(frames, obs, done):
+        """Shift the stack; restart it from the reset obs where done."""
+        if k == 1:
+            return obs
+        nxt = torch.cat([frames[..., 1:], obs[..., None]], dim=-1)
+        d = done.reshape(done.shape + (1,) * (nxt.dim() - 1))
+        return torch.where(d, _stack_reset(obs), nxt)
+
+    def epsilon(step):
+        # XLA divides by a constant as a product with its reciprocal
+        frac = torch.clamp(step.float() * _recip_f32(cfg.eps_decay_steps),
+                           0, 1)
+        return threefry._fma(frac, cfg.eps_end - cfg.eps_start,
+                             cfg.eps_start)
+
+    def init_fn(key) -> DQNState:
+        k_env, k_net, k_state = threefry.split(_key_tensor(key, device), 3)
+        obs, env_state = reset_fn(ecfg, B, k_env, device=device)
+        net = build()
+        net.reset_parameters(torch.Generator().manual_seed(_seed_of(k_net)))
+        params = {n: v.detach().to(device) for n, v in net.state_dict().items()}
+        zeros = lambda: {n: torch.zeros_like(v) for n, v in params.items()}
+        state = DQNState(
+            params=params, target_params=dict(params),
+            opt_state={"count": torch.zeros((), dtype=torch.int32,
+                                            device=device),
+                       "mu": zeros(), "nu": zeros()},
+            replay=replay_init(cfg.buffer_capacity, obs_shape, B, device),
+            env_state=env_state, obs=_stack_reset(obs), key=k_state,
+            step=torch.zeros((), dtype=torch.int32, device=device),
+            learn_steps=torch.zeros((), dtype=torch.int32, device=device))
+        if cfg.n_step > 1:
+            # prefill the window with n-1 random-policy transitions so that
+            # every actor step matures exactly one insertable transition
+            state = state.replace(window=_empty_window())
+            for _ in range(cfg.n_step - 1):
+                state = _prefill_step(state)
+        return state
+
+    def _empty_window():
+        n1 = cfg.n_step - 1
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+        return {"obs": z((n1, B) + obs_shape, torch.uint8),
+                "action": z((n1, B), torch.int8),
+                "reward": z((n1, B), torch.float32),
+                # True done marks the slots invalid until prefill fills them
+                "done": torch.ones((n1, B), dtype=torch.bool, device=device)}
+
+    @torch.no_grad()
+    def _prefill_step(state: DQNState) -> DQNState:
+        k_act, key = threefry.split(state.key)
+        action = threefry.randint(k_act, (B,), 0, NUM_ACTIONS)
+        raw_next, env_state, reward, done, _ = step_fn(ecfg, state.env_state,
+                                                       action)
+        next_obs = _stack_next(state.obs, raw_next, done)
+        window = _push_window(state.window, state.obs, action, reward, done)
+        return state.replace(env_state=env_state, obs=next_obs, key=key,
+                             window=window)
+
+    def _push_window(window, obs, action, reward, done):
+        """Drop the oldest pending transition, append the newest."""
+        new = {"obs": obs.to(torch.uint8), "action": action.to(torch.int8),
+               "reward": reward.float(), "done": done}
+        return {n: torch.cat([window[n][1:], new[n][None]]) for n in window}
+
+    def _mature_nstep(window, action_t, reward_t, done_t, next_obs_t):
+        """The window and the current transition folded into the matured
+        n-step transition (obs_0, a_0, R_n, next_obs_t, discount,
+        done_any), truncated exactly at the first episode end."""
+        rew_seq = torch.cat([window["reward"], reward_t.float()[None]])
+        done_seq = torch.cat([window["done"], done_t[None]])
+        alive = torch.ones_like(rew_seq[0])
+        ret = torch.zeros_like(rew_seq[0])
+        for j in range(cfg.n_step):
+            # one fused multiply-add, as XLA's CPU backend contracts it
+            ret = threefry._fma((cfg.gamma ** j) * alive, rew_seq[j], ret)
+            alive = alive * (1.0 - done_seq[j].float())
+        discount = (cfg.gamma ** cfg.n_step) * alive
+        return (window["obs"][0], window["action"][0], ret, next_obs_t,
+                discount, done_seq.any(dim=0))
+
+    def td_loss(params, target_params, batch, weights, nkey):
+        k1, k2, k3 = threefry.split(nkey, 3)
+        if cfg.noisy_shared_selection:
+            k3 = k1
+        q = apply_net(params, batch["obs"], k1)                    # [B, A]
+        q_sel = _select(q, batch["action"])
+        with torch.no_grad():
+            q_next_t = apply_net(target_params, batch["next_obs"], k2)
+            if cfg.double_dqn:
+                a_star = torch.argmax(
+                    apply_net(params, batch["next_obs"], k3), dim=1)
+                q_next = _select(q_next_t, a_star)
+            else:
+                q_next = q_next_t.max(dim=1).values
+            target = batch["reward"] + batch["discount"] * q_next
+        err = q_sel - target
+        loss = torch.where(err.abs() <= 1.0, 0.5 * err * err,
+                           err.abs() - 0.5)
+        return (loss * weights).mean(), (err, q_sel)
+
+    def c51_loss(params, target_params, batch, weights, nkey):
+        """Projected categorical cross-entropy; the per-sample
+        cross-entropy is also the PER priority signal."""
+        k1, k2, k3 = threefry.split(nkey, 3)
+        if cfg.noisy_shared_selection:
+            k3 = k1
+        logits = apply_net(params, batch["obs"], k1)              # [B, A, n]
+        logp_a = _select(F.log_softmax(logits, dim=-1), batch["action"])
+        q_sel = (torch.exp(logp_a) * support).sum(dim=-1)
+        with torch.no_grad():
+            p_t = _softmax(apply_net(target_params, batch["next_obs"], k2))
+            if cfg.double_dqn:
+                a_star = torch.argmax(
+                    q_values(params, batch["next_obs"], k3), dim=1)
+            else:
+                a_star = torch.argmax((p_t * support).sum(dim=-1), dim=1)
+            p_next = _select(p_t, a_star)
+            tz = batch["reward"][:, None] + batch["discount"][:, None] * support
+            m = project_distribution(p_next, tz, cfg.v_min, cfg.v_max,
+                                     cfg.num_atoms)
+        ce = -(m * logp_a).sum(dim=-1)
+        return (ce * weights).mean(), (ce, q_sel)
+
+    loss_fn = c51_loss if cfg.distributional else td_loss
+
+    @torch.no_grad()
+    def actor_half(state: DQNState):
+        """One env interaction and replay insert: (state, (k_sample,
+        k_nlearn, actor metrics))."""
+        k_eps, k_act, k_sample, k_nact, k_nlearn, key = threefry.split(
+            state.key, 6)
+        q = q_values(state.params, state.obs, k_nact)
+        greedy = torch.argmax(q, dim=1).to(torch.int32)
+        if cfg.noisy:
+            # exploration by parameter noise; k_eps / k_act stay drawn so
+            # the key stream is the eps-greedy variants'
+            action, eps_metric = greedy, torch.zeros((), device=device)
+        else:
+            eps_metric = epsilon(state.step)
+            rand_a = threefry.randint(k_act, (B,), 0, NUM_ACTIONS)
+            explore = threefry.uniform(k_eps, (B,)) < eps_metric
+            action = torch.where(explore, rand_a, greedy)
+        raw_next, env_state, reward, done, info = step_fn(
+            ecfg, state.env_state, action)
+        next_obs = _stack_next(state.obs, raw_next, done)
+        if cfg.n_step > 1:
+            m_obs, m_act, m_ret, m_next, m_disc, m_done = _mature_nstep(
+                state.window, action, reward, done, next_obs)
+            replay = replay_insert(state.replay, m_obs, m_next, m_act, m_ret,
+                                   m_done, discount=m_disc)
+            window = _push_window(state.window, state.obs, action, reward,
+                                  done)
+        else:
+            replay = replay_insert(state.replay, state.obs, next_obs, action,
+                                   reward, done, gamma=cfg.gamma)
+            window = state.window
+        state = state.replace(replay=replay, env_state=env_state,
+                              obs=next_obs, key=key, step=state.step + 1,
+                              window=window)
+        metrics = {"mean_reward": reward.mean(),
+                   "episodes_done": done.sum().float(),
+                   "lines_cleared": info["lines_delta"].sum().float(),
+                   "epsilon": eps_metric}
+        return state, (k_sample, k_nlearn, metrics)
+
+    def learner_half(state: DQNState, k_sample, k_nlearn,
+                     learn_steps: Optional[int] = None):
+        """One TD step; the caller gates it on ``learn_starts``.
+        ``learn_steps``: the host's copy of ``state.learn_steps`` (read
+        from the card when not given), for the target sync."""
+        if learn_steps is None:
+            learn_steps = int(state.learn_steps)
+        replay = state.replay
+        if cfg.prioritized:
+            frac = torch.clamp(state.learn_steps.float()
+                               * _recip_f32(cfg.per_beta_steps), 0, 1)
+            beta = threefry._fma(1.0 - cfg.per_beta0, frac, cfg.per_beta0)
+            sample_p = (replay_sample_slots_prioritized if cfg.sample_slots
+                        else replay_sample_prioritized)
+            batch, per_idx, weights = sample_p(replay, k_sample,
+                                               cfg.learn_batch, beta)
+        else:
+            if cfg.sample_slots:
+                batch, _ = replay_sample_slots(replay, k_sample,
+                                               cfg.learn_batch)
+            else:
+                batch = replay_sample(replay, k_sample, cfg.learn_batch)
+            weights = torch.ones(cfg.learn_batch, device=device)
+        p = {n: v.detach().requires_grad_() for n, v in state.params.items()}
+        loss, (err, q_sel) = loss_fn(p, state.target_params, batch, weights,
+                                     k_nlearn)
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        err = err.detach()
+        if cfg.prioritized:
+            update = (replay_update_priority_slots if cfg.sample_slots
+                      else replay_update_priority)
+            replay = update(replay, per_idx, err, cfg.per_alpha, cfg.per_eps)
+        grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+        updates, opt_state = adam_update(grads, state.opt_state, cfg.lr)
+        params = {n: state.params[n] + updates[n] for n in state.params}
+        target = state.target_params
+        if (learn_steps + 1) % cfg.target_update_period == 0:
+            target = dict(params)
+        metrics = {"loss": loss.detach(), "mean_q": q_sel.detach().mean(),
+                   "td_abs_err": err.abs().mean()}
+        return state.replace(params=params, target_params=target,
+                             opt_state=opt_state, replay=replay,
+                             learn_steps=state.learn_steps + 1), metrics
+
+    def _zeros():
+        return {n: torch.zeros((), device=device) for n in _LEARNER_KEYS}
+
+    def train_step_fn(state: DQNState):
+        state, (k_sample, k_nlearn, actor_m) = actor_half(state)
+        if int(state.replay.filled) >= cfg.learn_starts:
+            state, learner_m = learner_half(state, k_sample, k_nlearn)
+        else:
+            learner_m = _zeros()
+        return state, dict(sorted({**actor_m, **learner_m}.items()))
+
+    def train_chunk_fn(state: DQNState, n: int):
+        """``n`` actor steps, one learner update per ``cfg.learn_every`` of
+        them once the ring holds ``learn_starts`` transitions. Actor metrics
+        are means over the n steps, learner metrics over the n //
+        learn_every learner slots (0 for a skipped one)."""
+        le = cfg.learn_every
+        if n % le:
+            raise ValueError(f"chunk length {n} must be a multiple of "
+                             f"learn_every={le}")
+        filled_slots = int(state.replay.filled_slots)
+        learn_steps = int(state.learn_steps)
+        rows = []
+        for t in range(n):
+            state, (k_sample, k_nlearn, actor_m) = actor_half(state)
+            filled_slots = min(filled_slots + 1, slots)
+            if t % le == le - 1 and filled_slots * B >= cfg.learn_starts:
+                state, learner_m = learner_half(state, k_sample, k_nlearn,
+                                                learn_steps)
+                learn_steps += 1
+            else:
+                learner_m = _zeros()
+            rows.append({**actor_m, **learner_m})
+        metrics = {m: torch.stack([r[m] for r in rows]).sum(dim=0)
+                   / (n // le if m in _LEARNER_KEYS else n) for m in rows[0]}
+        return state, dict(sorted(metrics.items()))
+
+    train_chunk_fn.actor_half = actor_half
+    train_chunk_fn.learner_half = learner_half
+    return init_fn, train_step_fn, train_chunk_fn, network
+
+
+def train(cfg: DQNConfig, total_steps: int, key=0, chunk: int = 128,
+          log_fn=print, device="cuda") -> DQNState:
+    """The host loop: init, run chunks, log aggregated metrics."""
+    init_fn, _, chunk_fn, _ = make_train(cfg, device)
+    state = init_fn(key)
+    steps = 0
+    while steps < total_steps:
+        state, metrics = chunk_fn(state, chunk)
+        steps += chunk
+        if log_fn is not None:
+            host = {m: float(v) for m, v in metrics.items()}
+            host["env_steps"] = steps * cfg.num_envs
+            log_fn(host)
+    return state

@@ -7,7 +7,9 @@ checkpoints, one JSON line each (port of
 
 A ppo checkpoint is either an ``.npz`` of flax parameters
 (``utils.checkpoint.load_flax_params``) or a ``PPOState`` file written by
-``run_ppo --ckpt``. The es and dqn policies are not ported yet.
+``run_ppo --ckpt``; a dqn checkpoint likewise an ``.npz`` of flax Q-network
+parameters or a ``DQNState`` file written by ``run_dqn --ckpt``. The es
+policy is not ported yet.
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ def evaluate_policy(env: TetrisVectorEnv, action_fn, steps: int,
     }
 
 
-def _ppo_params(ckpt: str) -> dict:
+def _params(ckpt: str) -> dict:
+    """A state_dict from an ``.npz`` of flax parameters or a trainer
+    checkpoint."""
     from ..utils.checkpoint import load_flax_params, restore_checkpoint
     if ckpt.endswith(".npz"):
         return load_flax_params(ckpt)
@@ -57,9 +61,12 @@ def _ppo_params(ckpt: str) -> dict:
 
 
 def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
-                   seed: int = 0, device="cuda"):
+                   seed: int = 0, device="cuda", atoms: int = 0,
+                   noisy: bool = False):
     """``action_fn(obs, env_state) -> int32[batch]`` on ``device``: the card
-    unless ``device="cpu"``; a CUDA request without a card raises here."""
+    unless ``device="cpu"``; a CUDA request without a card raises here.
+    ``atoms`` / ``noisy``: the dqn checkpoint's C51 atom count and
+    NoisyNet layers."""
     device = check_device(device)
     if name == "random":
         rng = np.random.RandomState(seed)
@@ -76,7 +83,7 @@ def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
         from ..models.actor_critic import ActorCritic
         net = ActorCritic(spaces.observation_space(cfg).shape,
                           obs_type=cfg.obs_type)
-        net.load_state_dict(_ppo_params(ckpt))
+        net.load_state_dict(_params(ckpt))
         net.to(device)
 
         @torch.no_grad()
@@ -84,11 +91,41 @@ def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
             logits, _ = net(obs.float())
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return act_ppo
-    if name in ("es", "dqn"):
-        item = {"es": "12 (train/es.py)", "dqn": "11 (models/dqn.py)"}[name]
-        raise NotImplementedError(
-            f"the {name} policy is not ported yet: ROADMAP Queue 1 item {item}")
+    if name == "dqn":
+        if ckpt is None:
+            raise ValueError("--ckpt required for the dqn policy")
+        return _dqn_policy(cfg, _params(ckpt), atoms, noisy, device)
+    if name == "es":
+        raise NotImplementedError("the es policy is not ported yet: ROADMAP "
+                                  "Queue 1 item 12 (train/es.py)")
     raise ValueError(f"unknown policy {name!r}")
+
+
+def _dqn_policy(cfg: EnvConfig, params: dict, atoms: int, noisy: bool,
+                device):
+    """Greedy actions of a Q-network: argmax of Q, or under a C51 head of
+    the expectation over the atom index (greedy over E[Z] is the same for
+    any linear support). A noisy network plays mu-only (no noise key). A
+    dueling head is read from the parameters' names."""
+    from ..api import spaces
+    from ..models.dqn import build_q_network
+    from .dqn import _softmax
+    from .replay import _sum_f32
+    dueling = any(k.startswith(("DuelingHead_0.", "C51Head_0.value."))
+                  for k in params)
+    net = build_q_network(cfg.obs_type, spaces.observation_space(cfg).shape,
+                          dueling=dueling, num_atoms=atoms, noisy=noisy)
+    net.load_state_dict(params)
+    net.to(device)
+    idx = torch.arange(atoms, dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def act_dqn(obs, st):
+        out = net(obs)
+        if atoms:
+            out = _sum_f32(_softmax(out) * idx)
+        return torch.argmax(out, dim=1).to(torch.int32)
+    return act_dqn
 
 
 def main(argv=None):
@@ -102,10 +139,13 @@ def main(argv=None):
     p.add_argument("--num-envs", type=int, default=256)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--ckpt", default=None)
-    # the JAX CLI's flags of the dqn and es policies, accepted so that its
-    # command lines parse; those policies raise until they are ported
-    p.add_argument("--atoms", type=int, default=0)
-    p.add_argument("--noisy", action="store_true")
+    p.add_argument("--atoms", type=int, default=0,
+                   help="num_atoms of a distributional (C51) dqn checkpoint")
+    p.add_argument("--noisy", action="store_true",
+                   help="the dqn checkpoint has NoisyNet layers (evaluated "
+                        "deterministically with the mu weights)")
+    # the JAX CLI's flag of the es policy, accepted so that its command
+    # lines parse; that policy raises until it is ported
     p.add_argument("--es-hidden", type=int, nargs="+", default=[64, 64])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -118,7 +158,8 @@ def main(argv=None):
     results = {}
     for name in args.policies:
         fn = make_action_fn(name, cfg, args.num_envs, args.ckpt, args.seed,
-                            device=args.device)
+                            device=args.device, atoms=args.atoms,
+                            noisy=args.noisy)
         results[name] = evaluate_policy(env, fn, args.steps, args.seed)
         print(json.dumps({name: results[name]}), flush=True)
     return results

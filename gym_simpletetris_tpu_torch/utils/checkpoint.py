@@ -1,13 +1,17 @@
 """Checkpoints of the PyTorch port (counterpart of
 ``gym_simpletetris_tpu.utils.checkpoint``, which uses orbax).
 
-- ``save_checkpoint`` / ``restore_checkpoint``: the whole ``PPOState`` in one
-  ``torch.save`` file: params, Adam moments and step, the env state with its
-  threefry key, the current observation, the trainer key and the update
-  count. Training is a function of that state alone, so a resumed run is
-  bit-identical to one that never stopped.
-- ``load_flax_params``: flax ``ActorCritic`` parameters from an ``.npz``
-  whose keys are the flax paths joined by ``/`` (as
+- ``save_checkpoint`` / ``restore_checkpoint``: a whole trainer state in
+  one ``torch.save`` file. A ``PPOState``: params, Adam moments and step,
+  the env state with its threefry key, the current observation, the
+  trainer key and the update count. A ``DQNState``: params, target params,
+  Adam state, the replay ring (buffers, priorities, pointer and fill), the
+  n-step window, the env state, the observation stack, the key and the
+  step counters. Training is a function of that state alone, so a resumed
+  run is bit-identical to one that never stopped. ``restore_checkpoint``
+  tells the two apart by what the file holds.
+- ``load_flax_params``: flax parameters (``ActorCritic`` or a Q-network)
+  from an ``.npz`` whose keys are the flax paths joined by ``/`` (as
   ``artifacts/ppo_lineclear_params.npz`` holds them), as a state_dict.
 """
 
@@ -20,31 +24,46 @@ import numpy as np
 import torch
 
 
+def _fields(obj) -> dict:
+    """A dataclass's fields as a dict, nested state dataclasses too (the
+    tensors are not copied)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = _fields(v) if dataclasses.is_dataclass(v) else v
+    return out
+
+
 def save_checkpoint(path: str, state) -> str:
-    """Write ``state`` (a ``PPOState``) to the file ``path``."""
+    """Write ``state`` (a ``PPOState`` or ``DQNState``) to the file
+    ``path``."""
     path = os.path.abspath(path)
-    fields = lambda obj: {f.name: getattr(obj, f.name)
-                          for f in dataclasses.fields(obj)}
-    d = dict(fields(state), env_state=fields(state.env_state))  # no copies
     tmp = path + ".tmp"
-    torch.save(d, tmp)
+    torch.save(_fields(state), tmp)
     os.replace(tmp, path)            # a crash mid-write keeps the old file
     return path
 
 
 def restore_checkpoint(path: str, device="cpu"):
-    """Read a ``PPOState`` written by ``save_checkpoint`` onto ``device``."""
+    """Read a ``PPOState`` or ``DQNState`` written by ``save_checkpoint``
+    onto ``device``: a file that holds a replay ring is a ``DQNState``."""
     from ..core.state import EnvState
-    from ..train.ppo import PPOState
     d = torch.load(os.path.abspath(path), map_location=device,
                    weights_only=True)
     d["env_state"] = EnvState(**d["env_state"])
+    if "replay" in d:
+        from ..train.dqn import DQNState
+        from ..train.replay import ReplayState
+        r = d["replay"]
+        d["replay"] = ReplayState(**dict(r, obs_shape=tuple(r["obs_shape"])))
+        return DQNState(**d)
+    from ..train.ppo import PPOState
     return PPOState(**d)
 
 
 def load_flax_params(path: str) -> dict:
-    """An ``.npz`` of flax ActorCritic parameters (keys like
-    ``params/MlpTrunk_0/dense0/kernel``) -> an ``ActorCritic`` state_dict."""
+    """An ``.npz`` of flax parameters (keys like
+    ``params/MlpTrunk_0/dense0/kernel``) -> the port's state_dict."""
     from ..models.actor_critic import params_from_flax
     tree = {}
     with np.load(path) as z:

@@ -253,3 +253,52 @@ def test_env_on_the_card_matches_the_cpu(dev, width):
             outs.append((final.rows.cpu(), acc.cpu(), rew.cpu(), done.cpu()))
         for a, b in zip(*outs):
             assert torch.equal(a, b), o
+
+
+def test_f32_nature_dqn_on_the_card_matches_the_cpu(dev):
+    """The float32 NatureDQN (four stacked frames, C51 + dueling + noisy,
+    the same noise key) on the card against the CPU, within relative 1e-5
+    of the row's largest |output|: its convolutions run in IEEE float32
+    (``actor_critic._ieee_conv``), not cuDNN's default TF32."""
+    from gym_simpletetris_tpu_torch.core.state import _key_tensor
+    from gym_simpletetris_tpu_torch.models.dqn import build_q_network
+    net = build_q_network("grayscale", (84, 84, 4), dueling=True,
+                          num_atoms=51, noisy=True, dtype=torch.float32)
+    net.reset_parameters(torch.Generator().manual_seed(3))
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.choice([0.0, 128.0, 190.0],
+                                    size=(16, 84, 84, 4)).astype(np.float32))
+    with torch.no_grad():
+        for key in (None, 7):
+            kc = None if key is None else _key_tensor(key, "cpu")
+            kg = None if key is None else _key_tensor(key, dev)
+            out_c = net.to("cpu")(x, kc)
+            out_g = net.to(dev)(x.to(dev), kg).cpu()
+            tol = 1e-5 * out_c.abs().amax(dim=(1, 2), keepdim=True)
+            assert ((out_g - out_c).abs() <= tol).all()
+
+
+def test_replay_sums_on_the_card_match_the_cpu(dev):
+    """``_cumsum_f32`` and ``_sum_f32`` (XLA's order) and ``_powf`` give the
+    same bits on the card as on the CPU."""
+    from gym_simpletetris_tpu_torch.train import replay
+    rng = np.random.RandomState(0)
+    for shape in ((7,), (4097,), (100000,), (64, 1024), (256, 1024)):
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+        for fn in (replay._cumsum_f32, replay._sum_f32):
+            assert torch.equal(fn(x.to(dev)).cpu(), fn(x)), (fn, shape)
+    x = torch.from_numpy((rng.rand(100000) * 50 + 1e-3).astype(np.float32))
+    assert torch.equal(replay._powf(x.to(dev), 0.6).cpu(),
+                       replay._powf(x, 0.6))
+
+
+def test_threefry_normal_and_randint_on_the_card_match_the_cpu(dev):
+    from gym_simpletetris_tpu_torch.core import threefry
+    from gym_simpletetris_tpu_torch.core.state import _key_tensor
+    for seed in (0, 5, 123):
+        kc, kg = _key_tensor(seed, "cpu"), _key_tensor(seed, dev)
+        assert torch.equal(threefry.normal(kg, (3136, 1)).cpu(),
+                           threefry.normal(kc, (3136, 1)))
+        n = torch.tensor(1000, dtype=torch.int32)
+        assert torch.equal(threefry.randint(kg, (4096,), 0, n.to(dev)).cpu(),
+                           threefry.randint(kc, (4096,), 0, n))

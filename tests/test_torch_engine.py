@@ -18,9 +18,8 @@ from gym_simpletetris_tpu.ops.pallas_step import engine_step_pallas
 from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.api import env as port_env
 from gym_simpletetris_tpu_torch.core import engine as E
-from gym_simpletetris_tpu_torch.core.state import (
-    FIELDS, state_from_numpy, state_to_numpy)
 from gym_simpletetris_tpu_torch.ops import cuda_step
+from port_harness import assert_state_equal, to_port
 
 FLAG_SETS = {
     "default": dict(),
@@ -35,17 +34,6 @@ FLAG_SETS = {
     "w6_h8": dict(width=6, height=8, lock_delay=1, step_reset=True,
                   penalise_height=True),
 }
-
-
-def to_port(js):
-    return state_from_numpy({f: np.asarray(getattr(js, f)) for f in FIELDS})
-
-
-def assert_state_equal(js, ts, msg=""):
-    got = state_to_numpy(ts)
-    for f in FIELDS:
-        np.testing.assert_array_equal(got[f], np.asarray(getattr(js, f)),
-                                      err_msg=f"state.{f} {msg}")
 
 
 def assert_out_equal(jo, to, msg=""):

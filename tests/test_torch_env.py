@@ -21,21 +21,11 @@ from gym_simpletetris_tpu_torch.core.pieces import PIECE_NAMES
 from gym_simpletetris_tpu_torch.core.state import (
     FIELDS, init_state, state_from_numpy, state_to_numpy)
 from gym_simpletetris_tpu_torch.ops.bitops import unpack_board
+from port_harness import assert_state_equal
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "golden_traces.json")
 B = 8
-
-
-def to_port(js):
-    return state_from_numpy({f: np.asarray(getattr(js, f)) for f in FIELDS})
-
-
-def assert_state_equal(js, ts, msg=""):
-    got = state_to_numpy(ts)
-    for f in FIELDS:
-        np.testing.assert_array_equal(got[f], np.asarray(getattr(js, f)),
-                                      err_msg=f"state.{f} {msg}")
 
 
 def assert_bitwise(got: torch.Tensor, want, msg=""):

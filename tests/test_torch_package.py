@@ -1,4 +1,5 @@
-"""Boundaries of the PyTorch port: it imports no JAX, a CUDA request on a host
+"""Boundaries of the PyTorch port: it imports no JAX (nor flax or optax; the
+DQN path runs a few steps in the check), a CUDA request on a host
 without CUDA raises instead of running on the CPU, other devices raise, and
 a missing nvcc raises instead of falling back."""
 
@@ -35,6 +36,16 @@ def test_import_leaves_jax_out():
         "gym_simpletetris_tpu_torch.train.evaluate, "
         "gym_simpletetris_tpu_torch.utils.checkpoint, "
         "gym_simpletetris_tpu_torch.utils.kernel_timing\n"
+        "import gym_simpletetris_tpu_torch.models.dqn, "
+        "gym_simpletetris_tpu_torch.train.replay, "
+        "gym_simpletetris_tpu_torch.train.dqn, "
+        "gym_simpletetris_tpu_torch.train.run_dqn\n"
+        "from gym_simpletetris_tpu_torch.train import dqn\n"
+        "init_fn, _, chunk_fn, _ = dqn.make_train(dqn.DQNConfig("
+        "num_envs=4, buffer_capacity=16, learn_batch=4, learn_starts=8, "
+        "noisy=True, distributional=True, prioritized=True, n_step=2), "
+        "'cpu')\n"
+        "chunk_fn(init_fn(0), 3)\n"
         "from gym_simpletetris_tpu_torch.utils.checkpoint import "
         "load_flax_params\n"
         "load_flax_params('artifacts/ppo_lineclear_params.npz')\n"
@@ -74,6 +85,12 @@ def test_entry_points_default_to_the_card():
         init_state(cfg, 4, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         make_action_fn("random", cfg, 4)
+    from gym_simpletetris_tpu_torch.train import dqn, run_dqn
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.make_train(dqn.DQNConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.train(dqn.DQNConfig(num_envs=4, buffer_capacity=16), 1)
+    assert run_dqn.parse_args([]).device == "cuda"
 
 
 def test_other_devices_raise():

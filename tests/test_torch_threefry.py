@@ -148,3 +148,112 @@ def test_draw_spawn_r_matches_jax():
         got = threefry.draw_spawn_r(tdraw, torch.from_numpy(counts))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- the DQN trainer's draws and XLA-ordered sums --------------------------
+
+@pytest.mark.parametrize("shape", [(100000,), (37, 5), (1, 512), (3136, 1)])
+def test_normal_matches_jax(shape):
+    """``normal`` bitwise against ``jax.random.normal``: 100,000 draws, and
+    the NoisyDense noise shapes (in, 1) / (1, out)."""
+    for words in _keys(1 if shape[0] == 100000 else 6, seed=shape[0]):
+        want = np.asarray(jax.random.normal(_jax_key(words), shape))
+        got = threefry.normal(_key_tensor(words, "cpu"), shape)
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_erf_inv_and_log1p_match_xla():
+    """The pieces under ``normal`` over their whole range and its ends:
+    torch.erfinv and torch.log1p differ from XLA's in many values."""
+    from jax import lax
+    rng = np.random.RandomState(2)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = np.concatenate([rng.uniform(-1, 1, 100000),
+                        rng.uniform(-1e-3, 1e-3, 10000),
+                        1 - rng.uniform(0, 1e-3, 10000),
+                        [lo, 0.0, 0.5, -0.5, 0.99999994, 1e-30]]) \
+        .astype(np.float32)
+    x = torch.from_numpy(u)
+    for got, want in ((threefry.erf_inv_f32(x), lax.erf_inv(jnp.asarray(u))),
+                      (threefry.log1p_f32(-x * x), jnp.log1p(-jnp.asarray(u) ** 2)),
+                      (threefry.sqrt_f32(x.abs()), jnp.sqrt(jnp.abs(jnp.asarray(u))))):
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("span", [1, 7, 1000, 2 ** 31 - 1])
+def test_randint_matches_jax(span):
+    """Static and tensor ``maxval`` (the replay passes the filled slot
+    count as a device scalar), spans past 2**16 included, where jax's
+    uint32 multiplier wraps to 0."""
+    for words in _keys(6, seed=span % 1000):
+        k, t = _jax_key(words), _key_tensor(words, "cpu")
+        want = np.asarray(jax.random.randint(k, (999,), 0, span))
+        got = threefry.randint(t, (999,), 0, span)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        want = np.asarray(jax.random.randint(
+            k, (3, 7), 0, jnp.maximum(jnp.int32(span), 1)))
+        got = threefry.randint(t, (3, 7), 0, torch.tensor(span,
+                                                          dtype=torch.int32))
+        np.testing.assert_array_equal(got.numpy(), want)
+    # maxval <= minval gives minval
+    np.testing.assert_array_equal(
+        threefry.randint(_key_tensor(1, "cpu"), 5, 3, 3).numpy(),
+        np.asarray(jax.random.randint(jax.random.PRNGKey(1), (5,), 3, 3)))
+
+
+def test_flax_rng_matches_make_rng():
+    """The noise key of every NoisyDense path: ``flax_rng`` bitwise against
+    the key ``make_rng("noise")`` returns inside flax's apply."""
+    from gym_simpletetris_tpu.models import dqn as jax_dqn
+    seen = {}
+    orig = jax_dqn.NoisyDense.make_rng
+
+    def spy(self, name="params"):
+        key = orig(self, name)
+        seen[self.scope.path] = np.asarray(jax.random.key_data(key)
+                                           if key.dtype != jnp.uint32 else key)
+        return key
+
+    jax_dqn.NoisyDense.make_rng = spy
+    try:
+        for dueling, atoms in ((False, 0), (True, 0), (False, 51), (True, 51)):
+            net = jax_dqn.RamDQN(hidden=(8, 4), dueling=dueling,
+                                 num_atoms=atoms, noisy=True)
+            x = jnp.zeros((1, 6, 8))
+            params = net.init(jax.random.PRNGKey(0), x)
+            net.apply(params, x, rngs={"noise": jax.random.PRNGKey(9)})
+    finally:
+        jax_dqn.NoisyDense.make_rng = orig
+    paths = {p[-2:] if len(p) > 1 and p[-2] != "dense0" else p for p in seen}
+    assert ("dense0",) in seen and ("C51Head_0", "advantage") in seen
+    assert ("DuelingHead_0", "value") in seen and ("q",) in seen, paths
+    for path, want in seen.items():
+        got = threefry.flax_rng(_key_tensor(9, "cpu"), *path, 1)
+        np.testing.assert_array_equal(_u32(got), want.astype(np.uint32),
+                                      err_msg=str(path))
+
+
+@pytest.mark.parametrize("n", [7, 16, 17, 100, 255, 257, 1000, 4096, 4097,
+                               12345, 100000])
+def test_cumsum_f32_matches_jnp_cumsum(n):
+    """The PER sampler's cumulative sums, bitwise against ``jnp.cumsum``
+    (XLA's blocked scan); torch.cumsum is 1e-4 off at n = 4096."""
+    from gym_simpletetris_tpu_torch.train.replay import _cumsum_f32
+    x = np.random.RandomState(n).rand(n).astype(np.float32)
+    want = np.asarray(jnp.cumsum(jnp.asarray(x)))
+    got = _cumsum_f32(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_cumsum_f32_along_axis_1_matches_jnp_cumsum():
+    from gym_simpletetris_tpu_torch.train.replay import _cumsum_f32
+    x = np.random.RandomState(0).rand(64, 1024).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(jnp.asarray(x)))
+    got = _cumsum_f32(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
