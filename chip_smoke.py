@@ -27,7 +27,16 @@ defaults, 1024 envs and a 262,144-transition ring; 7g grayscale: NatureDQN
 with C51, dueling, noisy, 4 stacked frames, 256 envs, a 65,536-transition
 ring) and the dqn policy of ``evaluate`` on 7f's checkpoint (7h); one more
 chunk of each from its final state is held bitwise to a run on the plain
-step and raster with deterministic algorithms on. One line per phase; then a JSON line of the
+step and raster with deterministic algorithms on. Then the frame rings and
+ES: 7i, the grayscale Rainbow of 7g on the obs ring (``--replay-layout
+obs-ring``), a chunk held bitwise to the plain step and raster and one chunk
+with ``--sample-slots``; 7j, the single-frame frame ring at the same point
+with uniform sampling, and the actor stream of the three layouts held equal
+for 32 steps with learning off; 7k, ES on ram at the JAX package's defaults
+(pop 256 x 4 envs, horizon 256, RamDQN 64 / 64) through ``run_es`` for 2
+generations, one generation held bitwise to a run on the plain step; 7l, the
+es policy of ``evaluate`` on 7k's checkpoint, bitwise with the kernels and
+with the plain step. One line per phase; then a JSON line of the
 kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure, or no CUDA device, exits nonzero without that line. Imports
@@ -39,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -652,6 +662,20 @@ DQN_GRAY = ["--obs", "grayscale", "--num-envs", "256", "--frame-stack", "4",
             "--noisy", "--learn-every", "4", "--buffer", "65536", "--chunk",
             "32", "--total-steps", "64"]
 DQN_EVAL_STEPS = 200
+# the JAX package's flagship image point on the obs ring (7i), and the
+# single-frame frame ring there with uniform sampling (7j)
+DQN_OBS_RING = DQN_GRAY + ["--replay-layout", "obs-ring"]
+DQN_FRAME_RING = [a for a in DQN_GRAY if a != "--prioritized"] + [
+    "--replay-layout", "frame-ring", "--total-steps", "32"]
+# 7j's actor streams: 7i's network and ring at n_step 1, learning off
+STREAM_ARGS = ["--obs", "grayscale", "--num-envs", "256", "--frame-stack",
+               "4", "--distributional", "--dueling", "--noisy", "--buffer",
+               "65536", "--learn-starts", str(10 ** 9)]
+STREAM_STEPS = 32
+# run_es at the JAX package's defaults (pop 256 x 4 envs, horizon 256,
+# RamDQN 64 / 64), 2 generations
+ES_RAM = ["--generations", "2"]
+ES_EVAL_STEPS = 200
 
 
 def _launches() -> dict:
@@ -786,7 +810,6 @@ def _check_ppo(label, args, n_updates):
     halves (the launches of both counted), then that update's collection
     again on the plain step and raster: the trajectory must be bitwise
     equal."""
-    import math
     import torch
     from gym_simpletetris_tpu_torch.train import ppo, run_ppo
     n0 = _launches()
@@ -913,13 +936,15 @@ def _clone(x):
 
 def _same_dqn_state(a, b):
     """Names of the fields of two DQN states that differ."""
+    import dataclasses
     import torch
     pairs = {"env_state.rows": (a.env_state.rows, b.env_state.rows),
              "obs": (a.obs, b.obs), "key": (a.key, b.key),
              "step": (a.step, b.step)}
-    for f in ("obs", "next_obs", "action", "reward", "discount", "done",
-              "priority", "max_p", "ptr", "filled_slots"):
-        pairs["replay." + f] = (getattr(a.replay, f), getattr(b.replay, f))
+    for f in dataclasses.fields(a.replay):
+        x = getattr(a.replay, f.name)
+        if isinstance(x, torch.Tensor):
+            pairs["replay." + f.name] = (x, getattr(b.replay, f.name))
     for k in a.params:
         pairs["params." + k] = (a.params[k], b.params[k])
     if a.window is not None:
@@ -954,7 +979,6 @@ def _check_dqn(label, args, ckpt=None):
     the same state bit for bit (ring rows, env, params). Returns a record
     and the launches of the run and the timed chunk."""
     import io
-    import math
     import torch
     from gym_simpletetris_tpu_torch.train import dqn, run_dqn
     argv = args + ["--device", "cuda", "--seed", "0"] + (
@@ -1042,13 +1066,234 @@ def _check_dqn(label, args, ckpt=None):
         raise PhaseError(f"{label}: a chunk with the kernels != with the "
                          f"plain versions in {diff[:6]}")
     dones = int(s_k.replay.done.sum())
-    del s_k, s_p, start
-    return dict(lines=lines, run_s=run_s, moved=moved, chunk=n,
+    del s_k, s_p
+    return dict(lines=lines, run_s=run_s, moved=moved, chunk=n, start=start,
                 chunk_s=chunk_s, actor_s=actor_s, learner_s=learner_s,
                 sps=cfg.num_envs * n / chunk_s, profiled_wall_s=wall,
                 profiled_steps=n_prof,
                 busy_share=busy, device_ops=n_ops, dones=dones, parts=parts,
                 launches={k: n1[k] - n0[k] for k in n1})
+
+
+def _log_dqn(label, r):
+    busy = ("not measured (the profiler saw no device time)"
+            if r["busy_share"] is None else
+            f"{100 * (1 - r['busy_share']):.1f}% idle")
+    log(f"phase {label}: metrics finite, params moved (sum |dp| "
+        f"{r['moved']:.4f}); run_dqn {len(r['lines'])} chunks in "
+        f"{r['run_s']:.2f} s (init and prefill included); one more chunk "
+        f"of {r['chunk']} steps: {r['chunk_s']:.3f} s, "
+        f"{r['sps']:.0f} env-steps/s; its halves with a sync after each: "
+        f"actor {r['actor_s']:.3f} s + learner {r['learner_s']:.3f} s; "
+        f"{r['profiled_steps']} steps from the same state under "
+        f"torch.profiler {r['profiled_wall_s']:.3f} s, device {busy}, "
+        f"{r['device_ops']} device ops (a clone of the state "
+        f"included); the chunk with deterministic algorithms bitwise equal "
+        f"on the plain step and raster (ring rows, env, params; "
+        f"{r['dones']} dones in the ring); kernel launches "
+        f"{r['launches']}; seconds {r['parts']}; last line "
+        f"{json.dumps(r['lines'][-1])}")
+
+
+def _run_dqn_lines(label, args):
+    """``run_dqn`` with ``args`` on the card: (final state, metric lines),
+    every line finite and the learner run."""
+    import io
+    from gym_simpletetris_tpu_torch.train import run_dqn
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = run_dqn.main(args + ["--device", "cuda", "--seed", "0"])
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    for rec in lines:
+        bad = [k for k, v in rec.items() if not math.isfinite(v)]
+        if bad:
+            raise PhaseError(f"{label}: non-finite metrics {bad}")
+    if not lines or not lines[-1]["loss"] > 0:
+        raise PhaseError(f"{label}: the learner did not run: {lines[-1:]}")
+    return state, lines
+
+
+def _actor_stream(args):
+    """``STREAM_STEPS`` actor steps of ``run_dqn``'s configuration for
+    ``args`` from seed 0, learning off: per step (mean reward, episodes
+    done, lines cleared) and the env rows after it."""
+    import torch
+    from gym_simpletetris_tpu_torch.train import dqn, run_dqn
+    cfg = run_dqn.make_config(run_dqn.parse_args(args))
+    init_fn, _, chunk_fn, _ = dqn.make_train(cfg, "cuda")
+    s = init_fn(0)
+    rows = []
+    for _ in range(STREAM_STEPS):
+        s, (_, _, m) = chunk_fn.actor_half(s)
+        rows.append((torch.stack([m["mean_reward"], m["episodes_done"],
+                                  m["lines_cleared"]]),
+                     s.env_state.rows.clone()))
+    del s
+    return rows
+
+
+def phase_frame_rings():
+    """7i the grayscale Rainbow on the obs ring and one chunk with slot-row
+    sampling; 7j the single-frame frame ring with uniform sampling, and
+    the actor stream of the three layouts. Launch counts from 0 before
+    these phases, without the comparison runs. Returns the launches."""
+    import torch
+    from gym_simpletetris_tpu_torch.train import dqn, run_dqn
+    for fn in _counters().values():
+        fn.launches = 0
+    r = _check_dqn("7i dqn obs ring", DQN_OBS_RING)
+    launches = dict(r["launches"])
+    _log_dqn("7i dqn obs ring (flagship image point)", r)
+    # one chunk more with whole slot rows (slot-level PER) from the same
+    # state
+    cfg = run_dqn.make_config(run_dqn.parse_args(DQN_OBS_RING
+                                                 + ["--sample-slots"]))
+    _, _, chunk_fn, _ = dqn.make_train(cfg, "cuda")
+    start = r.pop("start")
+    ls0 = int(start.learn_steps)
+    n0 = _launches()
+    t0 = time.perf_counter()
+    s, m = chunk_fn(start, r["chunk"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    launches = {k: launches[k] + n1[k] - n0[k] for k in n1}
+    want = r["chunk"] // cfg.learn_every
+    if int(s.learn_steps) - ls0 != want or not all(
+            math.isfinite(float(v)) for v in m.values()) or \
+            not float(m["loss"]) > 0:
+        raise PhaseError(f"7i sample-slots chunk: {int(s.learn_steps) - ls0} "
+                         f"learner steps, want {want}; metrics {m}")
+    del s, start
+    log(f"phase 7i --sample-slots: one chunk of {r['chunk']} steps from the "
+        f"same state, {want} slot-row PER learner steps, metrics finite, in "
+        f"{secs:.3f} s ({cfg.num_envs * r['chunk'] / secs:.0f} "
+        f"env-steps/s); loss {float(m['loss']):.4f}")
+    n0 = _launches()
+    t0 = time.perf_counter()
+    state, lines = _run_dqn_lines("7j dqn frame ring", DQN_FRAME_RING)
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    launches = {k: launches[k] + n1[k] - n0[k] for k in n1}
+    if not isinstance(state.replay, dqn.FrameRingState) or \
+            state.replay.stacked:
+        raise PhaseError("7j: the run did not use the single-frame ring")
+    learned = int(state.learn_steps)
+    del state
+    n0 = _launches()
+    t0 = time.perf_counter()
+    streams = {layout: _actor_stream(STREAM_ARGS + ["--replay-layout",
+                                                    layout])
+               for layout in ("legacy", "frame-ring", "obs-ring")}
+    stream_s = time.perf_counter() - t0
+    n1 = _launches()
+    for layout in ("frame-ring", "obs-ring"):
+        for t, ((m0, r0), (m1, r1)) in enumerate(zip(streams["legacy"],
+                                                     streams[layout])):
+            if not (torch.equal(m0, m1) and torch.equal(r0, r1)):
+                raise PhaseError(f"7j: the {layout} actor stream != the "
+                                 f"legacy ring's at step {t}")
+    dones = int(sum(float(m[1]) for m, _ in streams["legacy"]))
+    del streams
+    log(f"phase 7j dqn frame ring (single frames, uniform sampling): run_dqn "
+        f"{len(lines)} chunk of 32 steps in {secs:.2f} s (init included), "
+        f"{learned} learner steps, metrics finite; last line "
+        f"{json.dumps(lines[-1])}; the actor stream of the legacy, frame and "
+        f"obs rings equal for {STREAM_STEPS} steps with learning off "
+        f"(n_step 1; rewards, dones and lines per step, env rows; "
+        f"{dones} episode ends) in {stream_s:.2f} s, kernel "
+        f"launches {dict((k, n1[k] - n0[k]) for k in n1)}")
+    log(f"phase 7i-7j frame-ring path: kernel launches {launches}")
+    for k in ("step", "raster"):
+        if launches[k] <= 0:
+            raise PhaseError(f"kernel {k} was not launched on the frame-ring "
+                             f"path")
+    return launches
+
+
+def phase_es(tmp):
+    """7k ES on ram through ``run_es`` at the JAX package's defaults, one
+    generation held bitwise to a run on the plain step; 7l the es policy of
+    ``evaluate`` on 7k's checkpoint. Launch counts from 0 before these
+    phases, without the comparison runs. Returns the launches."""
+    import io
+    import torch
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.train import es, run_es
+    from gym_simpletetris_tpu_torch.train.evaluate import make_action_fn
+    for fn in _counters().values():
+        fn.launches = 0
+    ckpt = os.path.join(tmp, "es_ram.pt")
+    argv = ES_RAM + ["--ckpt", ckpt, "--device", "cuda"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = run_es.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    cfg = run_es.make_config(run_es.parse_args(argv))
+    steps = cfg.horizon * len(lines)
+    if [ln["generation"] for ln in lines] != [1, 2] or not all(
+            math.isfinite(v) for ln in lines for v in ln.values()):
+        raise PhaseError(f"7k: run_es lines {lines}")
+    if int(state.generation) != 2 or launches["step"] != steps:
+        raise PhaseError(f"7k: generation {int(state.generation)}, "
+                         f"{launches['step']} step launches for {steps} steps")
+    # one generation from the final state, with the kernels and on the
+    # plain step, deterministic algorithms on
+    _, gen_fn, _ = es.make_es(cfg, "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        k, mk = gen_fn(_clone(state))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        with _plain_path():
+            t0 = time.perf_counter()
+            p, mp = gen_fn(_clone(state))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = [n for n in mk if not torch.equal(mk[n], mp[n])] + [
+        f for f in ("theta", "key") if not torch.equal(getattr(k, f),
+                                                       getattr(p, f))]
+    if diff:
+        raise PhaseError(f"7k: a generation with the kernels != on the plain "
+                         f"step in {diff}")
+    envs = cfg.pop_size * cfg.envs_per_member
+    log(f"phase 7k es ram (pop {cfg.pop_size} x {cfg.envs_per_member} envs, "
+        f"horizon {cfg.horizon}, RamDQN {cfg.hidden}, dim "
+        f"{state.theta.numel()}): run_es {len(lines)} generations in "
+        f"{run_s:.2f} s (init included), metrics finite; one more generation "
+        f"{gen_s:.3f} s ({envs * cfg.horizon / gen_s:.0f} env-steps/s), on "
+        f"the plain step {plain_s:.3f} s, bitwise equal (theta, key, "
+        f"metrics); kernel launches {launches}; last line "
+        f"{json.dumps(lines[-1])}")
+    del state, k, p
+    ecfg = EnvConfig(obs_type="ram", auto_reset=True, reward_step=True)
+    fn = make_action_fn("es", ecfg, TRAIN_B, ckpt, device="cuda",
+                        es_hidden=cfg.hidden)
+    n0 = _launches()
+    t0 = time.perf_counter()
+    run = _play(ecfg, fn, ES_EVAL_STEPS)
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    launches = {k: launches[k] + n1[k] - n0[k] for k in n1}
+    with _plain_path():
+        _same_play("es greedy eval", run, _play(ecfg, fn, ES_EVAL_STEPS))
+    st = run[3]
+    log(f"phase 7l es greedy eval of 7k's checkpoint: {ES_EVAL_STEPS} steps "
+        f"at B={TRAIN_B} in {secs:.2f} s, actions/rewards/dones bitwise "
+        f"equal with the kernels and with the plain step; "
+        f"{int(st.episodes.sum())} episodes, {int(st.total_lines.sum())} "
+        f"lines; {len(torch.unique(run[0]))} distinct actions")
+    log(f"phase 7k-7l es path: kernel launches {launches}")
+    if launches["step"] <= 0:
+        raise PhaseError("kernel step was not launched on the ES path")
+    return launches
 
 
 def phase_dqn(tmp):
@@ -1066,24 +1311,9 @@ def phase_dqn(tmp):
     for label, args, path in (("7f dqn ram", DQN_RAM, ckpt),
                               ("7g dqn grayscale Rainbow", DQN_GRAY, None)):
         r = _check_dqn(label, args, path)
+        del r["start"]
         launches = {k: launches.get(k, 0) + v for k, v in r["launches"].items()}
-        busy = ("not measured (the profiler saw no device time)"
-                if r["busy_share"] is None else
-                f"{100 * (1 - r['busy_share']):.1f}% idle")
-        log(f"phase {label}: metrics finite, params moved (sum |dp| "
-            f"{r['moved']:.4f}); run_dqn {len(r['lines'])} chunks in "
-            f"{r['run_s']:.2f} s (init and prefill included); one more chunk "
-            f"of {r['chunk']} steps: {r['chunk_s']:.3f} s, "
-            f"{r['sps']:.0f} env-steps/s; its halves with a sync after each: "
-            f"actor {r['actor_s']:.3f} s + learner {r['learner_s']:.3f} s; "
-            f"{r['profiled_steps']} steps from the same state under "
-            f"torch.profiler {r['profiled_wall_s']:.3f} s, device {busy}, "
-            f"{r['device_ops']} device ops (a clone of the state "
-            f"included); the chunk with deterministic algorithms bitwise equal "
-            f"on the plain step and raster (ring rows, env, params; "
-            f"{r['dones']} dones in the ring); kernel launches "
-            f"{r['launches']}; seconds {r['parts']}; last line "
-            f"{json.dumps(r['lines'][-1])}")
+        _log_dqn(label, r)
     cfg = EnvConfig(obs_type="ram", auto_reset=True, reward_step=True)
     fn = make_action_fn("dqn", cfg, TRAIN_B, ckpt, device="cuda")
     n0 = _launches()
@@ -1161,7 +1391,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix=".dqn_smoke_",
                                          dir=ROOT) as tmp:
             dqn_launches = phase_dqn(tmp)
-        took("7f-7h")
+            took("7f-7h")
+            ring_launches = phase_frame_rings()
+            took("7i-7j")
+            es_launches = phase_es(tmp)
+            took("7k-7l")
         log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -1171,7 +1405,8 @@ def main() -> int:
     pkg = "gym_simpletetris_tpu_torch/csrc/"
     kernels = []
     for suffix, n, err, t, d in (
-            ("", {k: v + dqn_launches[k] for k, v in launches.items()},
+            ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
+                  for k, v in launches.items()},
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),

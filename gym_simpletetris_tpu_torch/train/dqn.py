@@ -1,5 +1,5 @@
 """Rainbow DQN actor-learner on a torch device (port of
-``gym_simpletetris_tpu.train.dqn``), on the legacy replay ring.
+``gym_simpletetris_tpu.train.dqn``).
 
 Double DQN, dueling heads, C51, NoisyNets, n-step returns and prioritized
 replay, each switchable in ``DQNConfig``; epsilon is annealed linearly. One
@@ -19,8 +19,14 @@ trainer's bit for bit up to the first learner step. The learner's float
 sums run in torch's order, so its loss and parameters agree to about 1e-6
 (``tests/test_torch_dqn.py`` holds them to 1e-4). A fresh init draws the
 parameters from a ``torch.Generator`` seeded by the init key (flax's
-initialisers, not its draws). The frame-ring and obs-ring layouts
-(``frame_ring=True``) are not ported yet: ROADMAP Queue 1 item 11d.
+initialisers, not its draws).
+
+Replay layouts (``train/replay.py``): the legacy ring stores matured
+transitions (obs and next obs per slot, n-step returns from a rolling
+window); ``frame_ring=True`` stores one row per actor step and folds the
+n-step return when a batch is sampled, with no window: a single frame
+(the actor reads its stack back out of the ring), or with ``ring_stacks``
+the whole stack (the obs ring, the JAX package's flagship image layout).
 """
 
 from __future__ import annotations
@@ -40,8 +46,13 @@ from ..core.engine import NUM_ACTIONS
 from ..core.state import EnvState, _key_tensor
 from ..models.dqn import build_q_network
 from .ppo import _seed_of, adam_update, clip_by_global_norm
-from .replay import (ReplayState, _recip_f32, _sum_f32, replay_init,
-                     replay_insert, replay_sample, replay_sample_prioritized,
+from .replay import (FrameRingState, ReplayState, _recip_f32, _sum_f32,
+                     frame_ring_init, frame_ring_insert_frame,
+                     frame_ring_insert_step, frame_ring_sample,
+                     frame_ring_sample_prioritized, frame_ring_sample_slots,
+                     frame_ring_sample_slots_prioritized,
+                     frame_ring_stack_newest, replay_init, replay_insert,
+                     replay_sample, replay_sample_prioritized,
                      replay_sample_slots, replay_sample_slots_prioritized,
                      replay_update_priority, replay_update_priority_slots)
 
@@ -66,7 +77,7 @@ class DQNConfig:
     dueling: bool = False
     max_grad_norm: float = 10.0
     frame_stack: int = 1   # > 1 stacks the last K obs on a trailing axis
-    n_step: int = 1        # > 1 inserts n-step returns (rolling window)
+    n_step: int = 1        # > 1: n-step returns, exactly truncated
     prioritized: bool = False
     per_alpha: float = 0.6
     per_beta0: float = 0.4
@@ -80,8 +91,8 @@ class DQNConfig:
     noisy_shared_selection: bool = False  # one online noise draw for the
                            # loss forward and the double-DQN selection
     learn_every: int = 1   # actor steps per learner update
-    frame_ring: bool = False   # the frame / obs ring: not ported (item 11d)
-    ring_stacks: bool = False
+    frame_ring: bool = False   # one row per step, n-step folded at sample time
+    ring_stacks: bool = False  # with frame_ring: a row is the whole stack
     sample_slots: bool = False  # learner batches are whole slot rows
 
     def __post_init__(self):
@@ -108,9 +119,11 @@ class DQNState:
     params: Dict[str, torch.Tensor]         # Q-network state_dict, float32
     target_params: Dict[str, torch.Tensor]
     opt_state: dict                         # {"count", "mu", "nu"}
-    replay: ReplayState
+    replay: "ReplayState | FrameRingState"
     env_state: EnvState
-    obs: torch.Tensor          # current observation (stack) [num_envs, ...]
+    obs: torch.Tensor          # current observation (stack) [num_envs, ...];
+                               # uint8 on the frame ring: the newest frame,
+                               # or the stack on the obs ring
     key: torch.Tensor          # int32[2] threefry key data
     step: torch.Tensor         # int32[], actor steps taken
     learn_steps: torch.Tensor  # int32[]
@@ -183,10 +196,6 @@ def make_train(cfg: DQNConfig, device="cuda"):
     ecfg = cfg.env
     if not ecfg.auto_reset:
         raise ValueError("DQN training requires env auto_reset=True")
-    if cfg.frame_ring:
-        raise NotImplementedError(
-            "the frame-ring / obs-ring replay layouts (frame_ring=True) are "
-            "not ported yet: ROADMAP Queue 1 item 11d")
     base_shape = spaces.observation_space(ecfg).shape
     k = cfg.frame_stack
     obs_shape = base_shape + (k,) if k > 1 else base_shape
@@ -237,16 +246,27 @@ def make_train(cfg: DQNConfig, device="cuda"):
         net.reset_parameters(torch.Generator().manual_seed(_seed_of(k_net)))
         params = {n: v.detach().to(device) for n, v in net.state_dict().items()}
         zeros = lambda: {n: torch.zeros_like(v) for n, v in params.items()}
+        if cfg.frame_ring:
+            # no window and no prefill: a slot matures once its n
+            # successors exist
+            replay = frame_ring_init(cfg.buffer_capacity, base_shape, B, k,
+                                     cfg.n_step, cfg.gamma,
+                                     stacked=cfg.ring_stacks, device=device)
+            obs = obs.to(torch.uint8)
+            if cfg.ring_stacks:
+                obs = _stack_reset(obs)
+        else:
+            replay = replay_init(cfg.buffer_capacity, obs_shape, B, device)
+            obs = _stack_reset(obs)
         state = DQNState(
             params=params, target_params=dict(params),
             opt_state={"count": torch.zeros((), dtype=torch.int32,
                                             device=device),
                        "mu": zeros(), "nu": zeros()},
-            replay=replay_init(cfg.buffer_capacity, obs_shape, B, device),
-            env_state=env_state, obs=_stack_reset(obs), key=k_state,
+            replay=replay, env_state=env_state, obs=obs, key=k_state,
             step=torch.zeros((), dtype=torch.int32, device=device),
             learn_steps=torch.zeros((), dtype=torch.int32, device=device))
-        if cfg.n_step > 1:
+        if cfg.n_step > 1 and not cfg.frame_ring:
             # prefill the window with n-1 random-policy transitions so that
             # every actor step matures exactly one insertable transition
             state = state.replace(window=_empty_window())
@@ -340,6 +360,16 @@ def make_train(cfg: DQNConfig, device="cuda"):
         return (ce * weights).mean(), (ce, q_sel)
 
     loss_fn = c51_loss if cfg.distributional else td_loss
+    # the samplers of the layout: PER and uniform, slot rows or transitions
+    if cfg.frame_ring:
+        sample_p, sample_u = ((frame_ring_sample_slots_prioritized,
+                               frame_ring_sample_slots) if cfg.sample_slots
+                              else (frame_ring_sample_prioritized,
+                                    frame_ring_sample))
+    else:
+        sample_p, sample_u = ((replay_sample_slots_prioritized,
+                               replay_sample_slots) if cfg.sample_slots
+                              else (replay_sample_prioritized, replay_sample))
 
     @torch.no_grad()
     def actor_half(state: DQNState):
@@ -347,7 +377,14 @@ def make_train(cfg: DQNConfig, device="cuda"):
         k_nlearn, actor metrics))."""
         k_eps, k_act, k_sample, k_nact, k_nlearn, key = threefry.split(
             state.key, 6)
-        q = q_values(state.params, state.obs, k_nact)
+        cur_obs = state.obs
+        if cfg.frame_ring:
+            # this step's row (the frame, or the stack); on the single-frame
+            # ring the actor reads its stack back out of the ring
+            replay = frame_ring_insert_frame(state.replay, state.obs)
+            if not cfg.ring_stacks:
+                cur_obs = frame_ring_stack_newest(replay)
+        q = q_values(state.params, cur_obs, k_nact)
         greedy = torch.argmax(q, dim=1).to(torch.int32)
         if cfg.noisy:
             # exploration by parameter noise; k_eps / k_act stay drawn so
@@ -360,8 +397,14 @@ def make_train(cfg: DQNConfig, device="cuda"):
             action = torch.where(explore, rand_a, greedy)
         raw_next, env_state, reward, done, info = step_fn(
             ecfg, state.env_state, action)
-        next_obs = _stack_next(state.obs, raw_next, done)
-        if cfg.n_step > 1:
+        window = state.window
+        if cfg.frame_ring:
+            replay = frame_ring_insert_step(replay, action, reward, done)
+            next_obs = raw_next.to(torch.uint8)
+            if cfg.ring_stacks:
+                next_obs = _stack_next(state.obs, next_obs, done)
+        elif cfg.n_step > 1:
+            next_obs = _stack_next(state.obs, raw_next, done)
             m_obs, m_act, m_ret, m_next, m_disc, m_done = _mature_nstep(
                 state.window, action, reward, done, next_obs)
             replay = replay_insert(state.replay, m_obs, m_next, m_act, m_ret,
@@ -369,9 +412,9 @@ def make_train(cfg: DQNConfig, device="cuda"):
             window = _push_window(state.window, state.obs, action, reward,
                                   done)
         else:
+            next_obs = _stack_next(state.obs, raw_next, done)
             replay = replay_insert(state.replay, state.obs, next_obs, action,
                                    reward, done, gamma=cfg.gamma)
-            window = state.window
         state = state.replace(replay=replay, env_state=env_state,
                               obs=next_obs, key=key, step=state.step + 1,
                               window=window)
@@ -393,16 +436,12 @@ def make_train(cfg: DQNConfig, device="cuda"):
             frac = torch.clamp(state.learn_steps.float()
                                * _recip_f32(cfg.per_beta_steps), 0, 1)
             beta = threefry._fma(1.0 - cfg.per_beta0, frac, cfg.per_beta0)
-            sample_p = (replay_sample_slots_prioritized if cfg.sample_slots
-                        else replay_sample_prioritized)
             batch, per_idx, weights = sample_p(replay, k_sample,
                                                cfg.learn_batch, beta)
         else:
+            batch = sample_u(replay, k_sample, cfg.learn_batch)
             if cfg.sample_slots:
-                batch, _ = replay_sample_slots(replay, k_sample,
-                                               cfg.learn_batch)
-            else:
-                batch = replay_sample(replay, k_sample, cfg.learn_batch)
+                batch = batch[0]
             weights = torch.ones(cfg.learn_batch, device=device)
         p = {n: v.detach().requires_grad_() for n, v in state.params.items()}
         loss, (err, q_sel) = loss_fn(p, state.target_params, batch, weights,
@@ -428,9 +467,17 @@ def make_train(cfg: DQNConfig, device="cuda"):
     def _zeros():
         return {n: torch.zeros((), device=device) for n in _LEARNER_KEYS}
 
+    def can_learn(filled_slots: int) -> bool:
+        """The warm-up gate; a frame-ring slot is sampleable only once its
+        history and its n successors exist."""
+        history = 1 if cfg.ring_stacks else k
+        if cfg.frame_ring and filled_slots - history - cfg.n_step + 1 <= 0:
+            return False
+        return filled_slots * B >= cfg.learn_starts
+
     def train_step_fn(state: DQNState):
         state, (k_sample, k_nlearn, actor_m) = actor_half(state)
-        if int(state.replay.filled) >= cfg.learn_starts:
+        if can_learn(int(state.replay.filled_slots)):
             state, learner_m = learner_half(state, k_sample, k_nlearn)
         else:
             learner_m = _zeros()
@@ -451,7 +498,7 @@ def make_train(cfg: DQNConfig, device="cuda"):
         for t in range(n):
             state, (k_sample, k_nlearn, actor_m) = actor_half(state)
             filled_slots = min(filled_slots + 1, slots)
-            if t % le == le - 1 and filled_slots * B >= cfg.learn_starts:
+            if t % le == le - 1 and can_learn(filled_slots):
                 state, learner_m = learner_half(state, k_sample, k_nlearn,
                                                 learn_steps)
                 learn_steps += 1

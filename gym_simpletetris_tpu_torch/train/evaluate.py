@@ -8,8 +8,9 @@ checkpoints, one JSON line each (port of
 A ppo checkpoint is either an ``.npz`` of flax parameters
 (``utils.checkpoint.load_flax_params``) or a ``PPOState`` file written by
 ``run_ppo --ckpt``; a dqn checkpoint likewise an ``.npz`` of flax Q-network
-parameters or a ``DQNState`` file written by ``run_dqn --ckpt``. The es
-policy is not ported yet.
+parameters or a ``DQNState`` file written by ``run_dqn --ckpt``; an es
+checkpoint an ``ESState`` file written by ``run_es --ckpt`` (its policy's
+hidden widths given by ``--es-hidden``).
 """
 
 from __future__ import annotations
@@ -62,11 +63,11 @@ def _params(ckpt: str) -> dict:
 
 def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
                    seed: int = 0, device="cuda", atoms: int = 0,
-                   noisy: bool = False):
+                   noisy: bool = False, es_hidden=(64, 64)):
     """``action_fn(obs, env_state) -> int32[batch]`` on ``device``: the card
     unless ``device="cpu"``; a CUDA request without a card raises here.
     ``atoms`` / ``noisy``: the dqn checkpoint's C51 atom count and
-    NoisyNet layers."""
+    NoisyNet layers; ``es_hidden``: the es policy's MLP widths."""
     device = check_device(device)
     if name == "random":
         rng = np.random.RandomState(seed)
@@ -96,8 +97,20 @@ def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
             raise ValueError("--ckpt required for the dqn policy")
         return _dqn_policy(cfg, _params(ckpt), atoms, noisy, device)
     if name == "es":
-        raise NotImplementedError("the es policy is not ported yet: ROADMAP "
-                                  "Queue 1 item 12 (train/es.py)")
+        if ckpt is None:
+            raise ValueError("--ckpt required for the es policy")
+        from ..utils.checkpoint import restore_checkpoint
+        from .es import ESConfig, _build_policy, greedy_params
+        escfg = ESConfig(env=cfg, hidden=tuple(es_hidden))
+        net = _build_policy(escfg)[0]
+        net.load_state_dict(greedy_params(escfg,
+                                          restore_checkpoint(ckpt).theta))
+        net.to(device)
+
+        @torch.no_grad()
+        def act_es(obs, st):
+            return torch.argmax(net(obs.float()), dim=-1).to(torch.int32)
+        return act_es
     raise ValueError(f"unknown policy {name!r}")
 
 
@@ -144,9 +157,8 @@ def main(argv=None):
     p.add_argument("--noisy", action="store_true",
                    help="the dqn checkpoint has NoisyNet layers (evaluated "
                         "deterministically with the mu weights)")
-    # the JAX CLI's flag of the es policy, accepted so that its command
-    # lines parse; that policy raises until it is ported
-    p.add_argument("--es-hidden", type=int, nargs="+", default=[64, 64])
+    p.add_argument("--es-hidden", type=int, nargs="+", default=[64, 64],
+                   help="hidden widths of an es checkpoint's policy MLP")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (raises without a card) or cpu")
@@ -159,7 +171,7 @@ def main(argv=None):
     for name in args.policies:
         fn = make_action_fn(name, cfg, args.num_envs, args.ckpt, args.seed,
                             device=args.device, atoms=args.atoms,
-                            noisy=args.noisy)
+                            noisy=args.noisy, es_hidden=tuple(args.es_hidden))
         results[name] = evaluate_policy(env, fn, args.steps, args.seed)
         print(json.dumps({name: results[name]}), flush=True)
     return results

@@ -1,5 +1,7 @@
-"""Replay ring of the DQN trainer, the legacy layout (port of the first half
-of ``gym_simpletetris_tpu.train.replay``), with prioritized sampling.
+"""Replay rings of the DQN trainer (port of
+``gym_simpletetris_tpu.train.replay``), with prioritized sampling: the
+legacy ring of matured transitions, and the frame ring / obs ring of one
+row per actor step (below ``FrameRingState``).
 
 **Slot-major ring [S, B]**: B is the env batch (one actor step inserts one
 slot row of B transitions at the ring pointer), S = capacity / B slots. A
@@ -13,7 +15,7 @@ the [S, B] priority grid: level 1 picks the slot row from the cumulative
 slot sums, level 2 the env within it; sampling is with replacement, so the
 importance weights ``(N * P(i))**-beta`` are exact.
 
-Unlike the functional JAX ring, ``replay_insert`` and the priority updates
+Unlike the functional JAX rings, the inserts and the priority updates
 write into the ring's tensors in place (a copy of a ring of gigabytes per
 step is not an option); the returned state shares them. Clone a state
 before stepping it twice.
@@ -271,17 +273,15 @@ def _powf(x: torch.Tensor, y) -> torch.Tensor:
     return torch.where(torch.isinf(x), x, out)
 
 
-def replay_sample_prioritized(rs: ReplayState, key: torch.Tensor, batch: int,
-                              beta):
-    """Priority-proportional sample with replacement (``rs.priority``
-    holds p**alpha) by the two-level inverse CDF. Returns (batch dict,
-    flat indices, importance weights ``(N * P(i))**-beta`` normalised by
-    the buffer-wide max weight; 0 for a row of zero priority, drawn only
-    through round-off at the CDF edges)."""
-    bw, sl = rs.width, rs.slots
-    dev = rs.priority.device
-    valid = (torch.arange(sl, device=dev) < rs.filled_slots)[:, None]
-    grid = torch.where(valid, rs.priority, 0.0)
+def _per_draw(grid: torch.Tensor, key: torch.Tensor, batch: int, n_valid,
+              beta):
+    """Priority-proportional draws with replacement over the masked priority
+    grid [S, B] by the two-level inverse CDF, and their importance weights
+    ``(N * P(i))**-beta`` over ``n_valid`` sampleable transitions,
+    normalised by the grid-wide max weight (0 for a cell of zero priority,
+    drawn only through round-off at the CDF edges). Returns (slot, env,
+    flat index, weights)."""
+    sl, bw = grid.shape
     s_slot = _sum_f32(grid)                               # [S]
     total = _sum_f32(s_slot)
     u = threefry.uniform(key, (batch,)) * total
@@ -291,15 +291,29 @@ def replay_sample_prioritized(rs: ReplayState, key: torch.Tensor, batch: int,
     cum_in = _cumsum_f32(grid[slot])                      # [batch, B]
     row = torch.clamp((cum_in <= r[:, None]).sum(1), max=bw - 1)
     idx = slot * bw + row
-    out = _gather_batch(rs, idx)
     tot = torch.clamp(total, min=1e-12)
     prob = grid.reshape(-1)[idx] / tot
-    n = torch.clamp(rs.filled, min=1).float()
+    n = torch.clamp(n_valid, min=1).float()
     w = _powf(1.0 / (n * torch.clamp(prob, min=1e-12)), beta)
     w = torch.where(prob > 0, w, 0.0)
-    p_min = torch.where(valid & (grid > 0), grid, float("inf")).min()
-    w_max = _powf(1.0 / (n * torch.clamp(p_min, min=1e-12) / tot), beta)
-    return out, idx, w / torch.clamp(w_max, min=1e-12)
+    p_min = torch.where(grid > 0, grid, float("inf")).min()
+    # XLA rewrites 1 / (n * p_min / tot) as tot / (n * p_min)
+    w_max = _powf(tot / (n * torch.clamp(p_min, min=1e-12)), beta)
+    return slot, row, idx, w / torch.clamp(w_max, min=1e-12)
+
+
+def replay_sample_prioritized(rs: ReplayState, key: torch.Tensor, batch: int,
+                              beta):
+    """Priority-proportional sample with replacement (``rs.priority``
+    holds p**alpha) by the two-level inverse CDF. Returns (batch dict,
+    flat indices, importance weights ``(N * P(i))**-beta`` normalised by
+    the buffer-wide max weight; 0 for a row of zero priority, drawn only
+    through round-off at the CDF edges)."""
+    valid = (torch.arange(rs.slots, device=rs.priority.device)
+             < rs.filled_slots)[:, None]
+    grid = torch.where(valid, rs.priority, 0.0)
+    _, _, idx, w = _per_draw(grid, key, batch, rs.filled, beta)
+    return _gather_batch(rs, idx), idx, w
 
 
 def _slot_rows(slot: torch.Tensor, width: int) -> torch.Tensor:
@@ -313,7 +327,7 @@ def _legacy_slot_batch(rs: ReplayState, slot: torch.Tensor) -> dict:
     return _gather_batch(rs, _slot_rows(slot, rs.width))
 
 
-def _slot_count(rs: ReplayState, batch: int) -> int:
+def _slot_count(rs, batch: int) -> int:
     nb, rem = divmod(batch, rs.width)
     if rem:
         raise ValueError(f"slot-row batch {batch} must be a multiple of the "
@@ -328,6 +342,28 @@ def replay_sample_slots(rs: ReplayState, key: torch.Tensor, batch: int):
     return _legacy_slot_batch(rs, slot), slot
 
 
+def _per_slot_draw(p_s: torch.Tensor, key: torch.Tensor, nb: int, n_tr,
+                   width: int, beta):
+    """Slot-level PER: ``nb`` slots drawn with replacement in proportion to
+    their summed priority ``p_s`` [S], each weighted by its inclusion
+    probability spread uniformly over its ``width`` transitions, against
+    ``n_tr`` sampleable transitions. Returns (slots, weights[nb * width])."""
+    total = _sum_f32(p_s)
+    u = threefry.uniform(key, (nb,)) * total
+    cum = _cumsum_f32(p_s)
+    slot = torch.clamp((cum[None, :] <= u[:, None]).sum(1), max=p_s.shape[0] - 1)
+    tot = torch.clamp(total, min=1e-12)
+    q = p_s[slot] / tot
+    n_tr = torch.clamp(n_tr, min=1).float()
+    inv_b = _recip_f32(width)      # XLA divides by a constant so, too
+    w_slot = _powf(1.0 / (n_tr * torch.clamp(q * inv_b, min=1e-12)), beta)
+    w_slot = torch.where(q > 0, w_slot, 0.0)
+    q_min = torch.where(p_s > 0, p_s, float("inf")).min() / tot
+    w_max = _powf(1.0 / (n_tr * torch.clamp(q_min * inv_b, min=1e-12)), beta)
+    return slot, (w_slot / torch.clamp(w_max, min=1e-12)).repeat_interleave(
+        width)
+
+
 def replay_sample_slots_prioritized(rs: ReplayState, key: torch.Tensor,
                                     batch: int, beta):
     """Slot-level PER: slots drawn with replacement in proportion to their
@@ -335,40 +371,299 @@ def replay_sample_slots_prioritized(rs: ReplayState, key: torch.Tensor,
     importance-weighted by the slot's inclusion probability (uniform within
     the row). Returns (batch, slots, weights[nb * B])."""
     nb = _slot_count(rs, batch)
-    B, S = rs.width, rs.slots
-    dev = rs.priority.device
-    valid = (torch.arange(S, device=dev) < rs.filled_slots)[:, None]
+    valid = (torch.arange(rs.slots, device=rs.priority.device)
+             < rs.filled_slots)[:, None]
     p_s = _sum_f32(torch.where(valid, rs.priority, 0.0))
-    total = _sum_f32(p_s)
-    u = threefry.uniform(key, (nb,)) * total
-    cum = _cumsum_f32(p_s)
-    slot = torch.clamp((cum[None, :] <= u[:, None]).sum(1), max=S - 1)
-    tot = torch.clamp(total, min=1e-12)
-    q = p_s[slot] / tot
-    n_tr = torch.clamp(rs.filled, min=1).float()
-    inv_b = _recip_f32(B)          # XLA divides by a constant so, too
-    w_slot = _powf(1.0 / (n_tr * torch.clamp(q * inv_b, min=1e-12)), beta)
-    w_slot = torch.where(q > 0, w_slot, 0.0)
-    q_min = torch.where(p_s > 0, p_s, float("inf")).min() / tot
-    w_max = _powf(1.0 / (n_tr * torch.clamp(q_min * inv_b, min=1e-12)), beta)
-    weights = (w_slot / torch.clamp(w_max, min=1e-12)).repeat_interleave(B)
+    slot, weights = _per_slot_draw(p_s, key, nb, rs.filled, rs.width, beta)
     return _legacy_slot_batch(rs, slot), slot, weights
 
 
-def replay_update_priority(rs: ReplayState, idx: torch.Tensor, td_abs,
-                           alpha: float, eps: float = 1e-3) -> ReplayState:
+def replay_update_priority(rs, idx: torch.Tensor, td_abs, alpha: float,
+                           eps: float = 1e-3):
     """Write p = (|delta| + eps)**alpha at the sampled flat indices, in
-    place, and raise the running max. A transition drawn twice carries the
-    same delta both times, so which write lands is immaterial."""
+    place, and raise the running max (a ``ReplayState`` or a
+    ``FrameRingState``). A transition drawn twice carries the same delta
+    both times, so which write lands is immaterial."""
     p = _powf(td_abs.detach().abs() + eps, alpha)
     rs.priority.view(-1).index_put_((idx.long(),), p)
     return rs.replace(max_p=torch.maximum(rs.max_p, p.max()))
 
 
-def replay_update_priority_slots(rs: ReplayState, slot: torch.Tensor, td_abs,
-                                 alpha: float,
-                                 eps: float = 1e-3) -> ReplayState:
+def replay_update_priority_slots(rs, slot: torch.Tensor, td_abs,
+                                 alpha: float, eps: float = 1e-3):
     """The priority write-back of slot-row sampling: td_abs [nb * B] for
     the whole rows at ``slot``."""
     return replay_update_priority(rs, _slot_rows(slot, rs.priority.shape[1]),
                                   td_abs, alpha, eps)
+
+
+# ---------------------------------------------------------------------------
+# The frame ring and the obs ring: one slot per actor step, observation
+# stacks rebuilt and n-step returns folded when a batch is sampled.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FrameRingState:
+    """One slot per actor step: the frame f_t (or, ``stacked``, the whole
+    stack the actor saw) and (a_t, r_t, d_t, priority). ``done`` starts
+    True, so unfilled slots clamp stacks like episode boundaries. A sample's
+    stack needs ``history_slots`` slots behind it and its n-step target
+    ``n_step`` ahead, so sampling draws ring ages in [n_step,
+    filled - history_slots] (age 0 is the newest complete slot)."""
+    frame: torch.Tensor         # uint8[S, B, F]: the frame, or the stack
+    action: torch.Tensor        # int8[S, B]
+    reward: torch.Tensor        # float32[S, B], the raw 1-step reward
+    done: torch.Tensor          # bool[S, B]
+    priority: torch.Tensor      # float32[S, B], p**alpha, 0 for unfilled
+    max_p: torch.Tensor         # float32[]
+    ptr: torch.Tensor           # int32[], the slot being written
+    filled_slots: torch.Tensor  # int32[]
+    base_shape: Tuple[int, ...] = ()
+    frame_stack: int = 1
+    n_step: int = 1
+    gamma: float = 0.99
+    stacked: bool = False       # the obs ring: a slot row holds the stack
+
+    @property
+    def width(self) -> int:
+        return self.frame.shape[1]
+
+    @property
+    def slots(self) -> int:
+        return self.frame.shape[0]
+
+    @property
+    def history_slots(self) -> int:
+        """Slots of backward history a sample's stack needs."""
+        return 1 if self.stacked else self.frame_stack
+
+    @property
+    def valid_slots(self) -> torch.Tensor:
+        """Sampleable slots: ages [n_step, filled - history_slots]."""
+        return torch.clamp(self.filled_slots - self.history_slots
+                           - self.n_step + 1, min=0)
+
+    def replace(self, **kw) -> "FrameRingState":
+        return dataclasses.replace(self, **kw)
+
+
+def frame_ring_init(capacity: int, base_shape: Tuple[int, ...],
+                    insert_width: int, frame_stack: int = 1, n_step: int = 1,
+                    gamma: float = 0.99, stacked: bool = False,
+                    device="cpu") -> FrameRingState:
+    if capacity % insert_width:
+        raise ValueError(
+            f"capacity {capacity} must be a multiple of the env batch "
+            f"{insert_width} (each env owns capacity/B ring slots)")
+    b, s = insert_width, capacity // insert_width
+    if s < frame_stack + n_step + 1:
+        raise ValueError(f"ring of {s} slots cannot serve frame_stack="
+                         f"{frame_stack} + n_step={n_step}")
+    f = math.prod(int(d) for d in base_shape) * (frame_stack if stacked else 1)
+    z = lambda *shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    return FrameRingState(
+        base_shape=tuple(base_shape), frame_stack=int(frame_stack),
+        n_step=int(n_step), gamma=float(gamma), stacked=bool(stacked),
+        frame=z(s, b, f, dt=torch.uint8), action=z(s, b, dt=torch.int8),
+        reward=z(s, b, dt=torch.float32),
+        done=torch.ones((s, b), dtype=torch.bool, device=device),
+        priority=z(s, b, dt=torch.float32),
+        max_p=torch.ones((), dtype=torch.float32, device=device),
+        ptr=z(dt=torch.int32), filled_slots=z(dt=torch.int32))
+
+
+def frame_ring_insert_frame(rs: FrameRingState, frame) -> FrameRingState:
+    """Write f_t (or the stack) at the current slot, in place, before the
+    actor acts: it reads its stack straight back out of the ring."""
+    b = frame.shape[0]
+    if b != rs.width:
+        raise ValueError(f"insert width {b} != ring width {rs.width}")
+    rs.frame.index_put_((rs.ptr.long().view(1),),
+                        frame.to(torch.uint8).reshape(b, -1)[None])
+    return rs
+
+
+def frame_ring_insert_step(rs: FrameRingState, action, reward,
+                           done) -> FrameRingState:
+    """Complete the current slot with (a_t, r_t, d_t), in place, and
+    advance the ring."""
+    at = rs.ptr.long().view(1)
+    for buf, val in ((rs.action, action.to(torch.int8)),
+                     (rs.reward, reward.float()), (rs.done, done.bool()),
+                     (rs.priority, rs.max_p.expand(action.shape[0]))):
+        buf.index_put_((at,), val[None])
+    return rs.replace(ptr=(rs.ptr + 1) % rs.slots,
+                      filled_slots=torch.clamp(rs.filled_slots + 1,
+                                               max=rs.slots))
+
+
+def _run_length_grid(rs: FrameRingState) -> torch.Tensor:
+    """int32[S, B]: how many steps back each slot's episode extends, capped
+    at frame_stack - 1 (the stack clamp's offset cap)."""
+    run = torch.zeros(rs.done.shape, dtype=torch.int32, device=rs.done.device)
+    ok = torch.ones_like(rs.done)
+    for j in range(1, rs.frame_stack):
+        ok = ok & ~torch.roll(rs.done, j, 0)          # done at slot - j
+        run = torch.where(ok, j, run)
+    return run
+
+
+def _ring_stack(rs: FrameRingState, slot: torch.Tensor, env: torch.Tensor,
+                run_flat=None) -> torch.Tensor:
+    """The observation stacks ending at ``slot`` for the (slot, env) pairs,
+    uint8 [N, *base_shape(, k)]: position j back takes f_{slot - j} while no
+    done lies between, and past an episode's start its first frame (the
+    actor's reset-to-repeat stack), in one merged gather of k * N rows.
+    ``run_flat``: the flat run-length grid, shared by a sample's obs and
+    next stacks."""
+    k, S, B = rs.frame_stack, rs.slots, rs.width
+    flat = rs.frame.reshape(S * B, -1)
+    n = slot.shape[0]
+    if rs.stacked or k == 1:
+        out = flat.index_select(0, (slot * B + env).long())
+        tail = (k,) if rs.stacked and k > 1 else ()
+        return out.reshape((n,) + rs.base_shape + tail)
+    if run_flat is None:
+        run_flat = _run_length_grid(rs).reshape(S * B)
+    run = run_flat[(slot * B + env).long()]
+    idx = torch.stack([((slot - torch.clamp(run, max=j)) % S) * B + env
+                       for j in range(k)])             # [k, N], newest first
+    frames = flat.index_select(0, idx.reshape(-1).long()).reshape(k, n, -1)
+    stacked = frames.flip(0).permute(1, 2, 0)          # oldest first
+    return stacked.reshape((n,) + rs.base_shape + (k,))
+
+
+def frame_ring_stack_newest(rs: FrameRingState) -> torch.Tensor:
+    """The actor's current stack straight from the ring, after
+    :func:`frame_ring_insert_frame` (the newest frame sits at ptr): every
+    env reads the same k slot rows, with the episode clamp as cascaded
+    per-env selects."""
+    k, S, B = rs.frame_stack, rs.slots, rs.width
+    p = rs.ptr.long()
+    row = lambda buf, j: buf.index_select(0, ((p - j) % S).view(1))[0]
+    prev = row(rs.frame, 0)                            # [B, F]
+    if k == 1:
+        return prev.reshape((B,) + rs.base_shape)
+    frames, ok = [prev], torch.ones((B, 1), dtype=torch.bool,
+                                    device=prev.device)
+    for j in range(1, k):
+        ok = ok & ~row(rs.done, j)[:, None]
+        prev = torch.where(ok, row(rs.frame, j), prev)  # carry the clamp
+        frames.append(prev)
+    return torch.stack(frames[::-1], dim=-1).reshape((B,) + rs.base_shape
+                                                     + (k,))
+
+
+def _slot_scalar_folds(rs: FrameRingState):
+    """The n-step return, alive and done-any grids [S, B] of every slot,
+    folded from the raw rewards and dones of the n slots from it. XLA drops
+    the first term's ``0 + 1 * r`` and fuses each later one into a
+    multiply-add."""
+    ret, alive, done_any = rs.reward, torch.ones_like(rs.reward), rs.done
+    alive = alive * (1.0 - rs.done.float())
+    for i in range(1, rs.n_step):
+        r_i = torch.roll(rs.reward, -i, 0)             # the value at slot + i
+        d_i = torch.roll(rs.done, -i, 0)
+        ret = threefry._fma((rs.gamma ** i) * alive, r_i, ret)
+        done_any = done_any | d_i
+        alive = alive * (1.0 - d_i.float())
+    return ret, alive, done_any
+
+
+def _frame_ring_batch(rs: FrameRingState, slot: torch.Tensor,
+                      env: torch.Tensor) -> dict:
+    """The sampled transitions (slot, env): stacks rebuilt by gather and
+    clamp, the n-step return and discount from the folded grids."""
+    S, B, n = rs.slots, rs.width, rs.n_step
+    fidx = (slot * B + env).long()
+    ret, alive, done_any = _slot_scalar_folds(rs)
+    run_flat = (None if rs.frame_stack == 1 or rs.stacked
+                else _run_length_grid(rs).reshape(S * B))
+    return {
+        "obs": _ring_stack(rs, slot, env, run_flat),
+        "next_obs": _ring_stack(rs, (slot + n) % S, env, run_flat),
+        "action": rs.action.reshape(-1)[fidx].to(torch.int32),
+        "reward": ret.reshape(-1)[fidx],
+        "discount": (rs.gamma ** n) * alive.reshape(-1)[fidx],
+        "done": done_any.reshape(-1)[fidx],
+    }
+
+
+def _frame_ring_slot_batch(rs: FrameRingState, slot: torch.Tensor) -> dict:
+    """Whole slot rows as the batch: nb * B transitions, row-major. Needs
+    the obs ring or frame_stack 1, where a slot row is the observation."""
+    if not (rs.stacked or rs.frame_stack == 1):
+        raise ValueError("slot-row sampling needs ring_stacks=True or "
+                         "frame_stack == 1 (no per-env stack clamping)")
+    S, B, k = rs.slots, rs.width, rs.frame_stack
+    ret, alive, done_any = _slot_scalar_folds(rs)
+    shape = (slot.shape[0] * B,) + rs.base_shape + (
+        (k,) if rs.stacked and k > 1 else ())
+    rows = lambda buf, s: _take(buf, _slot_rows(s, B))
+    return {
+        "obs": rows(rs.frame, slot).reshape(shape),
+        "next_obs": rows(rs.frame, (slot + rs.n_step) % S).reshape(shape),
+        "action": rows(rs.action, slot).to(torch.int32),
+        "reward": rows(ret, slot),
+        "discount": (rs.gamma ** rs.n_step) * rows(alive, slot),
+        "done": rows(done_any, slot),
+    }
+
+
+def _ages_to_slots(rs: FrameRingState, key: torch.Tensor, shape):
+    """Uniform slots over the valid age window [n_step, filled - history]."""
+    m = rs.n_step + threefry.randint(key, shape, 0,
+                                     torch.clamp(rs.valid_slots, min=1))
+    return (rs.ptr - 1 - m) % rs.slots
+
+
+def frame_ring_sample_slots(rs: FrameRingState, key: torch.Tensor,
+                            batch: int):
+    """Uniform slot-row sample over the valid age window: ``batch`` is
+    nb * B. Returns (batch, slots)."""
+    slot = _ages_to_slots(rs, key, (_slot_count(rs, batch),))
+    return _frame_ring_slot_batch(rs, slot), slot
+
+
+def _frame_ring_valid_mask(rs: FrameRingState) -> torch.Tensor:
+    """[S] bool: the slots whose age lies in the sampleable window."""
+    ar = torch.arange(rs.slots, dtype=torch.int32, device=rs.ptr.device)
+    age = (rs.ptr - 1 - ar) % rs.slots
+    return (age >= rs.n_step) & (age < rs.n_step + rs.valid_slots)
+
+
+def _valid_grid(rs: FrameRingState) -> torch.Tensor:
+    return torch.where(_frame_ring_valid_mask(rs)[:, None], rs.priority, 0.0)
+
+
+def frame_ring_sample_slots_prioritized(rs: FrameRingState, key: torch.Tensor,
+                                        batch: int, beta):
+    """Slot-level PER over the valid window (see
+    :func:`replay_sample_slots_prioritized`): (batch, slots,
+    weights[nb * B])."""
+    nb = _slot_count(rs, batch)
+    slot, weights = _per_slot_draw(_sum_f32(_valid_grid(rs)), key, nb,
+                                   rs.valid_slots * rs.width, rs.width, beta)
+    return _frame_ring_slot_batch(rs, slot), slot, weights
+
+
+def frame_ring_sample(rs: FrameRingState, key: torch.Tensor,
+                      batch: int) -> dict:
+    """Uniform sample over the valid age window and the envs. Needs
+    ``rs.valid_slots > 0`` (the trainer gates on it): an under-filled ring
+    gives garbage, not an error."""
+    kb, ks = threefry.split(key)
+    slot = _ages_to_slots(rs, ks, (batch,))
+    env = threefry.randint(kb, (batch,), 0, rs.width)
+    return _frame_ring_batch(rs, slot, env)
+
+
+def frame_ring_sample_prioritized(rs: FrameRingState, key: torch.Tensor,
+                                  batch: int, beta):
+    """Priority-proportional sample with replacement over the valid window,
+    the legacy ring's two-level inverse CDF on the masked grid. Returns
+    (batch, flat indices, weights). Needs ``rs.valid_slots > 0``."""
+    slot, env, idx, w = _per_draw(_valid_grid(rs), key, batch,
+                                  rs.valid_slots * rs.width, beta)
+    return _frame_ring_batch(rs, slot, env), idx, w

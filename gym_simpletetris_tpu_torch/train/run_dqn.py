@@ -5,8 +5,11 @@
         --num-envs 1024 --total-steps 100000 --log-jsonl dqn.jsonl \
         --ckpt dqn.pt
 
-Only the legacy replay layout is ported: ``--replay-layout frame-ring`` and
-``obs-ring`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 11d).
+``--replay-layout`` picks the replay ring: ``legacy`` (obs and next obs
+per transition, the fastest for ram), ``obs-ring`` (one stacked row per
+step, no window and no next buffer: the flagship image layout) or
+``frame-ring`` (single frames, stacks rebuilt when sampled). A
+``--resume`` must use the layout the checkpoint was trained with.
 """
 
 from __future__ import annotations
@@ -61,8 +64,10 @@ def parse_args(argv=None):
                         "--chunk)")
     p.add_argument("--replay-layout", default="legacy",
                    choices=["legacy", "frame-ring", "obs-ring"],
-                   help="replay storage layout; only legacy is ported "
-                        "(frame-ring and obs-ring raise)")
+                   help="replay storage layout: legacy (stacked obs and "
+                        "next per transition), obs-ring (one stacked row "
+                        "per step, window-free, no next buffer), frame-ring "
+                        "(single frames, stacks rebuilt when sampled)")
     p.add_argument("--sample-slots", action="store_true",
                    help="learner batches are whole replay slot rows "
                         "(learn_batch/num_envs of them)")
@@ -102,6 +107,14 @@ def make_config(args) -> DQNConfig:
         sample_slots=args.sample_slots)
 
 
+def layout_of(state) -> str:
+    """The ``--replay-layout`` of a ``DQNState``'s replay ring."""
+    from .replay import FrameRingState
+    if not isinstance(state.replay, FrameRingState):
+        return "legacy"
+    return "obs-ring" if state.replay.stacked else "frame-ring"
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg = make_config(args)
@@ -109,6 +122,13 @@ def main(argv=None):
     if args.resume and args.ckpt and os.path.exists(args.ckpt):
         from ..utils.checkpoint import restore_checkpoint
         state = restore_checkpoint(args.ckpt, device=args.device)
+        held = layout_of(state)
+        if held != args.replay_layout:
+            raise SystemExit(
+                f"--resume failed restoring {args.ckpt!r} into a "
+                f"'{args.replay_layout}' replay layout: the checkpoint holds "
+                f"a '{held}' replay ring. Re-run with --replay-layout "
+                f"{held}, the layout it was trained with.")
         print(json.dumps({"resumed_from": args.ckpt,
                           "actor_steps": int(state.step)}), flush=True)
     else:

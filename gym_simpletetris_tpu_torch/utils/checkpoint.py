@@ -5,11 +5,13 @@
   one ``torch.save`` file. A ``PPOState``: params, Adam moments and step,
   the env state with its threefry key, the current observation, the
   trainer key and the update count. A ``DQNState``: params, target params,
-  Adam state, the replay ring (buffers, priorities, pointer and fill), the
-  n-step window, the env state, the observation stack, the key and the
-  step counters. Training is a function of that state alone, so a resumed
-  run is bit-identical to one that never stopped. ``restore_checkpoint``
-  tells the two apart by what the file holds.
+  Adam state, the replay ring (the legacy ring, or the frame / obs ring
+  with its layout: buffers, priorities, pointer and fill), the n-step
+  window, the env state, the observation (stack), the key and the step
+  counters. An ``ESState``: theta, the key and the generation. Training is
+  a function of that state alone, so a resumed run is bit-identical to one
+  that never stopped. ``restore_checkpoint`` tells the states and the ring
+  layouts apart by what the file holds.
 - ``load_flax_params``: flax parameters (``ActorCritic`` or a Q-network)
   from an ``.npz`` whose keys are the flax paths joined by ``/`` (as
   ``artifacts/ppo_lineclear_params.npz`` holds them), as a state_dict.
@@ -35,8 +37,8 @@ def _fields(obj) -> dict:
 
 
 def save_checkpoint(path: str, state) -> str:
-    """Write ``state`` (a ``PPOState`` or ``DQNState``) to the file
-    ``path``."""
+    """Write ``state`` (a ``PPOState``, ``DQNState`` or ``ESState``) to the
+    file ``path``."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     torch.save(_fields(state), tmp)
@@ -45,20 +47,29 @@ def save_checkpoint(path: str, state) -> str:
 
 
 def restore_checkpoint(path: str, device="cpu"):
-    """Read a ``PPOState`` or ``DQNState`` written by ``save_checkpoint``
-    onto ``device``: a file that holds a replay ring is a ``DQNState``."""
-    from ..core.state import EnvState
+    """Read a state written by ``save_checkpoint`` onto ``device``: a file
+    that holds ``theta`` is an ``ESState``, one that holds a replay ring a
+    ``DQNState`` (a ring of ``frame`` rows the frame / obs ring, else the
+    legacy ring), any other a ``PPOState``."""
     d = torch.load(os.path.abspath(path), map_location=device,
                    weights_only=True)
+    if "theta" in d:
+        from ..train.es import ESState
+        return ESState(**d)
+    from ..core.state import EnvState
     d["env_state"] = EnvState(**d["env_state"])
-    if "replay" in d:
-        from ..train.dqn import DQNState
-        from ..train.replay import ReplayState
-        r = d["replay"]
+    if "replay" not in d:
+        from ..train.ppo import PPOState
+        return PPOState(**d)
+    from ..train.dqn import DQNState
+    from ..train.replay import FrameRingState, ReplayState
+    r = d["replay"]
+    if "frame" in r:
+        d["replay"] = FrameRingState(**dict(
+            r, base_shape=tuple(r["base_shape"])))
+    else:
         d["replay"] = ReplayState(**dict(r, obs_shape=tuple(r["obs_shape"])))
-        return DQNState(**d)
-    from ..train.ppo import PPOState
-    return PPOState(**d)
+    return DQNState(**d)
 
 
 def load_flax_params(path: str) -> dict:

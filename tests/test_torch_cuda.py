@@ -302,3 +302,73 @@ def test_threefry_normal_and_randint_on_the_card_match_the_cpu(dev):
         n = torch.tensor(1000, dtype=torch.int32)
         assert torch.equal(threefry.randint(kg, (4096,), 0, n.to(dev)).cpu(),
                            threefry.randint(kc, (4096,), 0, n))
+
+
+def _clone(x):
+    """A deep copy of a trainer state's tensors (the replay ring is written
+    in place)."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+def _plain_path(monkeypatch):
+    """api.env's step and raster on their plain versions."""
+    from gym_simpletetris_tpu_torch.api import env as api_env
+    monkeypatch.setattr(E, "engine_step", E.engine_step_plain)
+    monkeypatch.setattr(api_env, "rasterize_rows", raster.rasterize_rows_plain)
+
+
+def test_obs_ring_actor_step_kernels_match_plain(dev, monkeypatch):
+    """One obs-ring actor step of the grayscale Rainbow (4 frames, C51,
+    dueling, noisy) through kernels A and B, bitwise equal to the same step
+    on the plain step and raster: env, observation stack, key and ring."""
+    from gym_simpletetris_tpu_torch.train import dqn
+    cfg = dqn.DQNConfig(
+        env=EnvConfig(obs_type="grayscale", auto_reset=True,
+                      reward_step=True),
+        num_envs=64, buffer_capacity=64 * 16, learn_batch=64,
+        frame_stack=4, n_step=3, prioritized=True, distributional=True,
+        dueling=True, noisy=True, frame_ring=True, ring_stacks=True)
+    init_fn, _, chunk_fn, _ = dqn.make_train(cfg, dev)
+    s = init_fn(0)
+    for _ in range(3):
+        s, _ = chunk_fn.actor_half(s)
+    a0, b0 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    k, _ = chunk_fn.actor_half(_clone(s))
+    assert cuda_step.step.launches == a0 + 1
+    assert cuda_raster.rasterize_rows.launches == b0 + 1
+    _plain_path(monkeypatch)
+    p, _ = chunk_fn.actor_half(_clone(s))
+    assert cuda_step.step.launches == a0 + 1
+    for f in FIELDS:
+        assert torch.equal(getattr(k.env_state, f), getattr(p.env_state, f)), f
+    assert torch.equal(k.obs, p.obs) and torch.equal(k.key, p.key)
+    for f in ("frame", "action", "reward", "done", "priority", "ptr"):
+        assert torch.equal(getattr(k.replay, f), getattr(p.replay, f)), f
+
+
+def test_es_generation_kernels_match_plain(dev, monkeypatch):
+    """One ES generation on ram (pop 16 x 2, horizon 32, RamDQN 64 / 64)
+    through kernel A, bitwise equal to it on the plain step: theta, key
+    and every metric."""
+    from gym_simpletetris_tpu_torch.train import es
+    cfg = es.ESConfig(pop_size=16, envs_per_member=2, horizon=32)
+    init_fn, gen_fn, _ = es.make_es(cfg, dev)
+    s0 = init_fn(0)
+    a0 = cuda_step.step.launches
+    k, mk = gen_fn(_clone(s0))
+    assert cuda_step.step.launches == a0 + 32
+    _plain_path(monkeypatch)
+    p, mp = gen_fn(_clone(s0))
+    assert cuda_step.step.launches == a0 + 32
+    assert torch.equal(k.theta, p.theta) and torch.equal(k.key, p.key)
+    for name in mk:
+        assert torch.equal(mk[name], mp[name]), name
+    assert not torch.equal(k.theta, s0.theta)

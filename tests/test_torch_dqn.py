@@ -44,6 +44,8 @@ CONFIGS = {
 }
 REPLAY = ("obs", "next_obs", "action", "reward", "discount", "done",
           "priority", "ptr", "filled_slots", "max_p")
+REPLAY_FRAME = ("frame", "action", "reward", "done", "priority", "ptr",
+                "filled_slots", "max_p")
 
 
 def _pair(name, **over):
@@ -76,7 +78,7 @@ def _assert_actor_state_equal(js, ts, msg):
     assert_bitwise(ts.obs, np.asarray(js.obs), f"{msg} obs")
     assert_bitwise(ts.key, np.asarray(js.key).view(np.int32), f"{msg} key")
     assert int(ts.step) == int(js.step), msg
-    for f in ("obs", "next_obs", "action", "reward", "discount", "done"):
+    for f in _ring_fields(js)[0]:
         assert_bitwise(getattr(ts.replay, f), np.asarray(getattr(js.replay, f)),
                        f"{msg} replay.{f}")
     if js.window is not None:
@@ -85,9 +87,17 @@ def _assert_actor_state_equal(js, ts, msg):
                            f"{msg} window.{f}")
 
 
+def _ring_fields(js):
+    """(the fields the actor writes, the priority and counter fields) of
+    the JAX state's replay ring, legacy or frame ring."""
+    if hasattr(js.replay, "frame"):
+        return REPLAY_FRAME[:4], REPLAY_FRAME[4:]
+    return REPLAY[:6], REPLAY[6:]
+
+
 def _assert_ring_equal(js, ts, msg):
     _assert_actor_state_equal(js, ts, msg)
-    for f in REPLAY[6:]:
+    for f in _ring_fields(js)[1]:
         assert_bitwise(getattr(ts.replay, f), np.asarray(getattr(js.replay, f)),
                        f"{msg} replay.{f}")
 

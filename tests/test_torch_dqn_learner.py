@@ -94,13 +94,20 @@ def test_config_validation_and_frame_ring():
                       num_envs=16, buffer_capacity=64, learn_batch=32)
     with pytest.raises(ValueError, match="auto_reset"):
         dqn.make_train(dqn.DQNConfig(env=EnvConfig()), "cpu")
-    with pytest.raises(NotImplementedError, match="11d"):
-        dqn.make_train(dqn.DQNConfig(frame_ring=True, ring_stacks=True),
-                       "cpu")
+    # the frame ring and the obs ring build (ROADMAP item 11d), and run_dqn
+    # runs on each layout
+    from gym_simpletetris_tpu_torch.train.replay import FrameRingState
     from gym_simpletetris_tpu_torch.train.run_dqn import main
+    for stacks in (False, True):
+        init_fn = dqn.make_train(dqn.DQNConfig(
+            num_envs=4, buffer_capacity=32, frame_ring=True,
+            ring_stacks=stacks), "cpu")[0]
+        assert isinstance(init_fn(0).replay, FrameRingState)
     for layout in ("frame-ring", "obs-ring"):
-        with pytest.raises(NotImplementedError, match="11d"):
-            main(["--replay-layout", layout, "--device", "cpu"])
+        state = main(["--replay-layout", layout, "--device", "cpu",
+                      "--num-envs", "4", "--buffer", "32", "--chunk", "2",
+                      "--total-steps", "2", "--width", "6", "--height", "8"])
+        assert state.replay.stacked == (layout == "obs-ring")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             dqn.make_train(dqn.DQNConfig(), "cuda")

@@ -127,8 +127,11 @@ def test_action_fns_and_errors():
                                   np.random.RandomState(3).randint(0, 7, 4))
     with pytest.raises(ValueError, match="ckpt"):
         evaluate.make_action_fn("ppo", cfg, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        evaluate.make_action_fn("es", cfg, 4, ckpt="x", device="cpu")
+    # the es policy is ported (ROADMAP item 12): it needs a checkpoint
+    with pytest.raises(ValueError, match="ckpt"):
+        evaluate.make_action_fn("es", cfg, 4, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        evaluate.make_action_fn("es", cfg, 4, ckpt="missing.pt", device="cpu")
     # the dqn policy is ported: it needs a checkpoint that exists
     with pytest.raises(ValueError, match="ckpt"):
         evaluate.make_action_fn("dqn", cfg, 4, device="cpu")

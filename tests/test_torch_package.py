@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: it imports no JAX (nor flax or optax; the
-DQN path runs a few steps in the check), a CUDA request on a host
+DQN path on the legacy ring and the obs ring and an ES generation run a few
+steps in the check), a CUDA request on a host
 without CUDA raises instead of running on the CPU, other devices raise, and
 a missing nvcc raises instead of falling back."""
 
@@ -39,13 +40,19 @@ def test_import_leaves_jax_out():
         "import gym_simpletetris_tpu_torch.models.dqn, "
         "gym_simpletetris_tpu_torch.train.replay, "
         "gym_simpletetris_tpu_torch.train.dqn, "
-        "gym_simpletetris_tpu_torch.train.run_dqn\n"
-        "from gym_simpletetris_tpu_torch.train import dqn\n"
-        "init_fn, _, chunk_fn, _ = dqn.make_train(dqn.DQNConfig("
-        "num_envs=4, buffer_capacity=16, learn_batch=4, learn_starts=8, "
-        "noisy=True, distributional=True, prioritized=True, n_step=2), "
-        "'cpu')\n"
-        "chunk_fn(init_fn(0), 3)\n"
+        "gym_simpletetris_tpu_torch.train.run_dqn, "
+        "gym_simpletetris_tpu_torch.train.es, "
+        "gym_simpletetris_tpu_torch.train.run_es\n"
+        "from gym_simpletetris_tpu_torch.train import dqn, es\n"
+        "for ring in (False, True):\n"
+        "    init_fn, _, chunk_fn, _ = dqn.make_train(dqn.DQNConfig("
+        "num_envs=4, buffer_capacity=32, learn_batch=4, learn_starts=8, "
+        "noisy=True, distributional=True, prioritized=True, n_step=2, "
+        "frame_ring=ring, ring_stacks=ring, sample_slots=ring), 'cpu')\n"
+        "    chunk_fn(init_fn(0), 4)\n"
+        "init_fn, gen_fn, _ = es.make_es(es.ESConfig(pop_size=4, "
+        "envs_per_member=1, horizon=2, hidden=(8,)), 'cpu')\n"
+        "gen_fn(init_fn(0))\n"
         "from gym_simpletetris_tpu_torch.utils.checkpoint import "
         "load_flax_params\n"
         "load_flax_params('artifacts/ppo_lineclear_params.npz')\n"
@@ -90,7 +97,17 @@ def test_entry_points_default_to_the_card():
         dqn.make_train(dqn.DQNConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         dqn.train(dqn.DQNConfig(num_envs=4, buffer_capacity=16), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dqn.make_train(dqn.DQNConfig(frame_ring=True, ring_stacks=True))
     assert run_dqn.parse_args([]).device == "cuda"
+    from gym_simpletetris_tpu_torch.train import es, run_es
+    with pytest.raises(RuntimeError, match="cuda"):
+        es.make_es(es.ESConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        es.train(es.ESConfig(pop_size=2, envs_per_member=1), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_action_fn("es", cfg, 4, ckpt="missing.pt")
+    assert run_es.parse_args([]).device == "cuda"
 
 
 def test_other_devices_raise():
