@@ -36,7 +36,18 @@ for 32 steps with learning off; 7k, ES on ram at the JAX package's defaults
 (pop 256 x 4 envs, horizon 256, RamDQN 64 / 64) through ``run_es`` for 2
 generations, one generation held bitwise to a run on the plain step; 7l, the
 es policy of ``evaluate`` on 7k's checkpoint, bitwise with the kernels and
-with the plain step. One line per phase; then a JSON line of the
+with the plain step. Then the user-facing surfaces, each held bitwise to a
+run on the plain step and raster that must launch no kernel: 8a, the gym
+shim ``make("SimpleTetris-v0")`` at B = 1 on 10 x 20 for ram, grayscale, rgb
+and grayscale with extend_dims (300 actions each, out-of-range ones
+included), its renders at 160 and 512 px against the host raster; 8b, the
+shim on 8 random configurations (widths 4-16, heights 5-24, every flag);
+8c, the standalone ``TetrisEngine`` (500 steps, the board setter); 8d, the
+gymnasium vector adapter's core with next-step autoreset (ram 4096 envs x
+200 steps, grayscale 1024 x 100); 8e, the port's host C++
+``NativeTetrisEnv`` (built with g++) against the shim on the card, on the
+same spawn draws; 8f, ``record_episode`` at 160 px. One line per phase;
+then a JSON line of the
 kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure, or no CUDA device, exits nonzero without that line. Imports
@@ -1337,6 +1348,361 @@ def phase_dqn(tmp):
     return launches
 
 
+# ---------------------------------------------------- user-facing surfaces
+
+SHIM_STEPS = 300          # 8a, per observation type
+SHIM_ACTIONS = (-1, 0, 1, 2, 2, 3, 4, 5, 6, 7)   # -1 and 7 are no-ops
+SHIM_OBS = (dict(obs_type="ram"), dict(obs_type="grayscale"),
+            dict(obs_type="rgb"), dict(obs_type="grayscale", extend_dims=True))
+FUZZ_CASES, FUZZ_STEPS = 8, 100   # 8b
+ENGINE_STEPS = 500        # 8c
+VECTOR_CASES = ((dict(obs_type="ram", reward_step=True), 4096, 200),
+                (dict(obs_type="grayscale", penalise_holes=True), 1024, 100))
+NATIVE_STEPS = 300        # 8e
+VIDEO_STEPS = 500         # 8f, the most steps of the recorded episode
+
+
+def _fuzz_env_kwargs(rng):
+    """A random shim configuration, drawn as the JAX package's shim fuzz
+    draws it (``tests/test_shim_fuzz.random_env_kwargs``): widths 4-16,
+    heights 5-24, every flag, every observation type."""
+    kw = dict(
+        width=int(rng.randint(4, 17)),
+        height=int(rng.randint(5, 25)),
+        lock_delay=int(rng.choice([0, 0, 1, 2, 4])),
+        step_reset=bool(rng.randint(2)),
+        reward_step=bool(rng.randint(2)),
+        penalise_height=bool(rng.randint(2)),
+        penalise_height_increase=bool(rng.randint(2)),
+        advanced_clears=bool(rng.randint(2)),
+        high_scoring=bool(rng.randint(2)),
+        penalise_holes=bool(rng.randint(2)),
+        penalise_holes_increase=bool(rng.randint(2)),
+    )
+    kw["obs_type"] = str(rng.choice(["ram", "grayscale", "rgb"]))
+    kw["extend_dims"] = bool(rng.randint(2))
+    return kw
+
+
+def _same_tree(what, a, b, path="out"):
+    """Two nests of numpy arrays, dicts, tuples / lists and scalars equal
+    bit for bit (arrays by dtype, shape and bytes)."""
+    import numpy as np
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if (a.dtype, a.shape) != (b.dtype, b.shape) or \
+                a.tobytes() != b.tobytes():
+            raise PhaseError(f"{what}: {path} differs between the kernels "
+                             f"and the plain versions")
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            raise PhaseError(f"{what}: {path} keys {list(a)} != {list(b)}")
+        for k in a:
+            _same_tree(what, a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise PhaseError(f"{what}: {path} lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(what, x, y, f"{path}[{i}]")
+    elif type(a) is not type(b) or a != b:
+        raise PhaseError(f"{what}: {path} {a!r} != {b!r}")
+
+
+def _kernel_and_plain(what, run, key=lambda r: r):
+    """``run()`` with the kernels, then again on the plain step and raster
+    (``_plain_path``), which must launch no kernel. Returns (the kernel
+    run's result, its launches, its seconds); fails unless ``key`` of the
+    two results is bitwise equal."""
+    import torch
+    n0 = _launches()
+    t0 = time.perf_counter()
+    kernel = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n1 = _launches()
+    with _plain_path():
+        plain = run()
+    torch.cuda.synchronize()
+    n2 = _launches()
+    if n2 != n1:
+        raise PhaseError(f"{what}: the plain run launched kernels "
+                         f"{ {k: n2[k] - n1[k] for k in n1} }")
+    _same_tree(what, key(kernel), key(plain))
+    return kernel, {k: n1[k] - n0[k] for k in n1}, secs
+
+
+def _shim_play(kw, steps, seed):
+    """``steps`` random actions (-1 and 7 among them: no-ops) of the gym
+    shim ``make("SimpleTetris-v0", backend="cuda")``, reset on done: every
+    reset and step output, the env, and the number of calls."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch import make
+    env = make("SimpleTetris-v0", backend="cuda", seed=seed, **kw)
+    rng = np.random.RandomState(seed)
+    out = [env.reset(return_info=True)]
+    for _ in range(steps):
+        r = env.step(int(rng.choice(SHIM_ACTIONS)))
+        out.append(r)
+        if r[2]:
+            out.append(env.reset(return_info=True))
+    return out, env
+
+
+def _check_shim_outputs(what, env, out):
+    """Observations of the declared shape and values, finite rewards, an
+    episode ended; the renders against the host raster."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch.api.gym_compat import human_image
+    from gym_simpletetris_tpu_torch.ops.raster import rasterize_host
+    allowed = [0, 1] if env.obs_type == "ram" else [0, 128, 190]
+    for o in out:
+        if o[0].shape != env.observation_space.shape or \
+                not np.isin(o[0], allowed).all():
+            raise PhaseError(f"{what}: bad observation {o[0].shape}")
+    if not all(np.isfinite(o[1]) for o in out if len(o) == 4) or \
+            not any(o[2] for o in out if len(o) == 4):
+        raise PhaseError(f"{what}: rewards not finite or no episode ended")
+    board = env._board()
+    rgb = env.render("rgb_array")
+    human = human_image(env.config, env._rows(), env.window_size)
+    for img, want in ((rgb, rasterize_host(board.T, env.height, env.width,
+                                           160)),
+                      (human, rasterize_host(board, env.width, env.height,
+                                             env.window_size))):
+        if not (img == want[..., None]).all():
+            raise PhaseError(f"{what}: render at {img.shape[0]} px != the "
+                             "host raster")
+
+
+def _add(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_shim():
+    """8a: the gym shim on 10 x 20 for each observation type; 8b: the shim
+    over 8 random configurations (kernel A at B = 1 over the flag and
+    geometry space). Returns (launches, ms per shim call by obs type)."""
+    import numpy as np
+    launches, ms = {}, {}
+    for i, kw in enumerate(SHIM_OBS):
+        label = kw["obs_type"] + ("+extend_dims" if kw.get("extend_dims")
+                                  else "")
+        (out, env), n, secs = _kernel_and_plain(
+            f"8a shim {label}", lambda: _shim_play(kw, SHIM_STEPS, 20 + i),
+            key=lambda r: r[0])
+        n0 = _launches()
+        _check_shim_outputs(f"8a shim {label}", env, out)
+        n = _add(n, {k: v - n0[k] for k, v in _launches().items()})
+        _add(launches, n)
+        ms[label] = 1e3 * secs / len(out)
+        log(f"phase 8a shim {label} 10x20: {len(out)} reset / step calls "
+            f"({SHIM_STEPS} actions, {sum(o[2] for o in out if len(o) == 4)}"
+            f" episodes ended), bitwise equal with the kernels and on the "
+            f"plain step and raster (obs, reward, done, info); renders at 160"
+            f" and 512 px equal to the host raster; {ms[label]:.3f} ms a "
+            f"call with the kernels; kernel launches {n}")
+    fuzz = {}
+    for case in range(FUZZ_CASES):
+        kw = _fuzz_env_kwargs(np.random.RandomState(1000 + case))
+        (out, env), n, _ = _kernel_and_plain(
+            f"8b shim fuzz {kw}", lambda: _shim_play(kw, FUZZ_STEPS, case),
+            key=lambda r: r[0])
+        _add(fuzz, n)
+        if out[-1][0].shape != env.observation_space.shape:
+            raise PhaseError(f"8b {kw}: bad observation shape")
+    _add(launches, fuzz)
+    log(f"phase 8b shim fuzz: {FUZZ_CASES} random configurations (widths "
+        f"4-16, heights 5-24, every flag and obs type) x {FUZZ_STEPS} "
+        f"actions at B=1, bitwise equal with the kernels and on the plain "
+        f"step and raster; kernel launches {fuzz}")
+    return launches, ms
+
+
+def _engine_play(steps, seed):
+    """The standalone ``TetrisEngine`` on the card: ``steps`` random
+    actions, ``clear()`` on done, the info every 10 steps; then the board
+    setter's round trip and 20 steps from the set board."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch import TetrisEngine
+    eng = TetrisEngine(10, 20, 1, False, True, True, False, True, False,
+                       True, False, seed=seed, device="cuda")
+    rng = np.random.RandomState(seed)
+    out = [eng.clear()]
+    for t in range(steps):
+        r = eng.step(int(rng.randint(0, 7)))
+        out.append(r)
+        if t % 10 == 0 or r[2]:
+            out.append((eng.get_info(), eng.anchor, eng.shape,
+                        eng._lock_delay, eng.valid_action_count()))
+        if r[2]:
+            out.append(eng.clear())
+    board = np.zeros((10, 20))
+    board[:, 16:] = rng.randint(0, 2, (10, 4))
+    eng.board = board
+    if not (eng.board == (board != 0)).all():
+        raise PhaseError("8c: the board setter's round trip differs")
+    for _ in range(20):
+        out.append(eng.step(int(rng.randint(0, 7))))
+    out.append(repr(eng))
+    return out
+
+
+def phase_engine():
+    """8c: the standalone engine. Returns its launches."""
+    out, n, secs = _kernel_and_plain(
+        "8c TetrisEngine", lambda: _engine_play(ENGINE_STEPS, 5))
+    dones = sum(o[2] for o in out if isinstance(o, tuple) and len(o) == 3)
+    log(f"phase 8c TetrisEngine 10x20 (lock_delay 1, reward_step, "
+        f"penalties): {ENGINE_STEPS} steps with clear() on done ({dones} "
+        f"episodes) and the board setter's round trip, bitwise equal with "
+        f"the kernels and on the plain step; {secs:.2f} s with the kernels; "
+        f"kernel launches {n}")
+    if dones == 0:
+        raise PhaseError("8c: no episode ended")
+    return n
+
+
+def _vector_play(kw, num_envs, steps):
+    """``_TorchVectorCore`` with next-step autoreset on the card: a digest
+    of every output, the seconds spent in ``step``, the envs that
+    terminated, and the autoreset checked on the host."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch.api.gymnasium_vector import (
+        _TorchVectorCore)
+    core = _TorchVectorCore(num_envs, 3, device="cuda", **kw)
+    digest = hashlib.sha256()
+
+    def add(*arrays):
+        for a in arrays:
+            digest.update(str((a.dtype, a.shape)).encode())
+            digest.update(np.ascontiguousarray(a).tobytes())
+    obs, info = core.reset()
+    add(obs, *info.values())
+    rng = np.random.RandomState(4)
+    prev = np.zeros(num_envs, dtype=bool)
+    piece = 1 if kw["obs_type"] == "ram" else 190   # no piece on a reset
+    terms, step_s = 0, 0.0
+    for t in range(steps):
+        a = rng.choice([0, 1, 2, 2, 3, 4, 5, 6], num_envs)
+        t0 = time.perf_counter()
+        obs, reward, term, info = core.step(a)
+        step_s += time.perf_counter() - t0
+        add(obs, reward, term, *info.values())
+        if prev.any() and (term[prev].any() or reward[prev].any()
+                           or (obs[prev] == piece).any()):
+            raise PhaseError(f"8d {kw}: step {t} did not reset the envs "
+                             "that terminated a step before")
+        prev = term
+        terms += int(term.sum())
+    return digest.hexdigest(), step_s, terms
+
+
+def phase_vector():
+    """8d: the gymnasium vector adapter's core. Returns its launches and
+    env-steps/s by obs type."""
+    launches, rates = {}, {}
+    for kw, n_envs, steps in VECTOR_CASES:
+        what = f"8d vector core {kw['obs_type']}"
+        (digest, step_s, terms), n, secs = _kernel_and_plain(
+            what, lambda: _vector_play(kw, n_envs, steps),
+            key=lambda r: (r[0], r[2]))
+        _add(launches, n)
+        rates[kw["obs_type"]] = n_envs * steps / step_s
+        if terms == 0:
+            raise PhaseError(f"{what}: no episode ended")
+        log(f"phase {what}: {n_envs} envs x {steps} steps, next-step "
+            f"autoreset, bitwise equal with the kernels and on the plain "
+            f"step and raster (sha256 of every output {digest[:16]}); "
+            f"{terms} terminations; {rates[kw['obs_type']]:.0f} env-steps/s "
+            f"in step() with the kernels (numpy out included); kernel "
+            f"launches {n}")
+    return launches, rates
+
+
+def phase_native():
+    """8e: the port's host C++ env against the shim on the card, on the
+    same spawn draws. g++ must build the library here. Returns the card
+    run's launches."""
+    import numpy as np
+    from gym_simpletetris_tpu_torch import make
+    from gym_simpletetris_tpu_torch.api.native_env import NativeTetrisEnv
+    kw = dict(obs_type="grayscale", reward_step=True, penalise_holes=True,
+              lock_delay=1)
+    nat = NativeTetrisEnv(**kw)
+    env = make(backend="cuda", **kw)
+    rng = np.random.RandomState(6)
+
+    def draw(info):
+        c = np.array(list(info["statistics"].values()))
+        return int(rng.randint(1, int((5 + c.max() - c).sum()) + 1))
+
+    def reset(r):
+        a, b = (e.reset(return_info=True, injected_r=r) for e in (nat, env))
+        _same_tree("8e native against the card (reset)", a, b)
+        return b[1]
+    n0 = _launches()
+    info = reset(draw({"statistics": dict.fromkeys("TJLZSIO", 0)}))
+    dones = 0
+    for t in range(NATIVE_STEPS):
+        a, r = int(rng.randint(0, 7)), draw(info)
+        x, y = nat.step(a, injected_r=r), env.step(a, injected_r=r)
+        _same_tree(f"8e native against the card (step {t})", x, y)
+        info = y[3]
+        if y[2]:
+            dones += 1
+            info = reset(draw(info))
+    n = {k: v - n0[k] for k, v in _launches().items()}
+    if dones == 0:
+        raise PhaseError("8e: no episode ended")
+    log(f"phase 8e native backend: the port's C++ NativeTetrisEnv and the "
+        f"shim on the card, {NATIVE_STEPS} grayscale steps in lockstep on "
+        f"the same spawn draws ({dones} episodes): obs, reward, done and info "
+        f"equal; kernel launches {n}")
+    return n
+
+
+def phase_video():
+    """8f: ``record_episode`` at 160 px. Returns its launches."""
+    from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
+    from gym_simpletetris_tpu_torch.utils.video import record_episode
+
+    def run():
+        env = TetrisVectorEnv(EnvConfig(reward_step=True), 1, device="cuda")
+        return record_episode(env, max_steps=VIDEO_STEPS, size=160, seed=2)
+    frames, n, secs = _kernel_and_plain("8f record_episode", run)
+    if frames.shape[1:] != (160, 160, 3) or len(frames) < 3:
+        raise PhaseError(f"8f: frames {frames.shape}")
+    log(f"phase 8f record_episode 10x20 at 160 px: {len(frames)} frames, "
+        f"bitwise equal with the kernels and on the plain step and raster; "
+        f"{secs:.2f} s with the kernels; kernel launches {n}")
+    return n
+
+
+def phase_surfaces():
+    """8a-8f, the user-facing surfaces on the card, each against a run on
+    the plain step and raster that launches no kernel. Launch counts from 0
+    before these phases, without the comparison runs; A and B must have
+    launched. Returns the launches."""
+    for fn in _counters().values():
+        fn.launches = 0
+    launches, ms = phase_shim()
+    _add(launches, phase_engine())
+    vec, rates = phase_vector()
+    _add(launches, vec)
+    _add(launches, phase_native())
+    _add(launches, phase_video())
+    log(f"phase 8 user-facing surfaces: ms per shim call (8a) "
+        f"{ {k: round(v, 3) for k, v in ms.items()} }; vector core "
+        f"env-steps/s (8d) { {k: round(v) for k, v in rates.items()} }; "
+        f"kernel launches {launches}")
+    for k in ("step", "raster"):
+        if launches[k] <= 0:
+            raise PhaseError(f"kernel {k} was not launched on the surfaces")
+    return launches
+
+
 def main() -> int:
     # deterministic cuBLAS for the DQN phases' kernel-against-plain chunk;
     # it must be set before cuBLAS starts
@@ -1396,6 +1762,8 @@ def main() -> int:
             took("7i-7j")
             es_launches = phase_es(tmp)
             took("7k-7l")
+        surface_launches = phase_surfaces()
+        took("8a-8f")
         log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -1406,7 +1774,7 @@ def main() -> int:
     kernels = []
     for suffix, n, err, t, d in (
             ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
-                  for k, v in launches.items()},
+                  + surface_launches[k] for k, v in launches.items()},
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),

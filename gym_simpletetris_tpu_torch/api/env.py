@@ -18,8 +18,9 @@ board[x, y] 0/1 grid, grayscale/rgb the 84 x 84 raster, delivered as float32
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.config import EnvConfig
@@ -187,6 +188,31 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
         return state, acc, rew, don
 
     return rollout
+
+
+def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors as numpy arrays of their dtypes and shapes, through one
+    device -> host copy: each is flattened into one int32 buffer (4-byte
+    dtypes by their bits, others by value), which is copied once and cut
+    apart. On the card each separate ``.cpu()`` or ``int()`` is a sync.
+    Takes 4-byte dtypes and integer or bool dtypes of 1-2 bytes."""
+    for t in tensors:
+        if t.element_size() > 4 or (t.is_floating_point()
+                                    and t.element_size() != 4):
+            raise TypeError(f"to_host does not take {t.dtype}")
+    parts = [t.reshape(-1) for t in tensors]
+    parts = [p.view(torch.int32) if p.element_size() == 4
+             else p.to(torch.int32) for p in parts]
+    flat = torch.cat(parts).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        a = flat[at:at + n]
+        dt = np.dtype(str(t.dtype).replace("torch.", ""))
+        a = a.view(dt) if dt.itemsize == 4 else a.astype(dt)
+        out.append(a.reshape(tuple(t.shape)))
+        at += n
+    return out
 
 
 def check_device(device) -> torch.device:

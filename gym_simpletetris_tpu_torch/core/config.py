@@ -99,5 +99,18 @@ class EnvConfig:
         # _lock_delay_fn = (x+1) % (max(lock_delay,0)+1)
         return max(self.lock_delay, 0) + 1
 
+    def scoring_dict(self) -> dict:
+        """The reference's ``_scoring`` dict (tetris_env.py:141-149), for
+        introspection."""
+        return {
+            "reward_step": self.reward_step,
+            "penalise_height": self.penalise_height,
+            "penalise_height_increase": self.penalise_height_increase,
+            "advanced_clears": self.advanced_clears,
+            "high_scoring": self.high_scoring,
+            "penalise_holes": self.penalise_holes,
+            "penalise_holes_increase": self.penalise_holes_increase,
+        }
+
     def replace(self, **kw) -> "EnvConfig":
         return dataclasses.replace(self, **kw)

@@ -52,13 +52,13 @@ def evaluate_policy(env: TetrisVectorEnv, action_fn, steps: int,
     }
 
 
-def _params(ckpt: str) -> dict:
+def _params(ckpt: str, device) -> dict:
     """A state_dict from an ``.npz`` of flax parameters or a trainer
-    checkpoint."""
+    checkpoint (read onto ``device``)."""
     from ..utils.checkpoint import load_flax_params, restore_checkpoint
     if ckpt.endswith(".npz"):
         return load_flax_params(ckpt)
-    return restore_checkpoint(ckpt).params
+    return restore_checkpoint(ckpt, device).params
 
 
 def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
@@ -84,7 +84,7 @@ def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
         from ..models.actor_critic import ActorCritic
         net = ActorCritic(spaces.observation_space(cfg).shape,
                           obs_type=cfg.obs_type)
-        net.load_state_dict(_params(ckpt))
+        net.load_state_dict(_params(ckpt, device))
         net.to(device)
 
         @torch.no_grad()
@@ -95,7 +95,7 @@ def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
     if name == "dqn":
         if ckpt is None:
             raise ValueError("--ckpt required for the dqn policy")
-        return _dqn_policy(cfg, _params(ckpt), atoms, noisy, device)
+        return _dqn_policy(cfg, _params(ckpt, device), atoms, noisy, device)
     if name == "es":
         if ckpt is None:
             raise ValueError("--ckpt required for the es policy")
@@ -104,7 +104,7 @@ def make_action_fn(name: str, cfg: EnvConfig, batch: int, ckpt: str = None,
         escfg = ESConfig(env=cfg, hidden=tuple(es_hidden))
         net = _build_policy(escfg)[0]
         net.load_state_dict(greedy_params(escfg,
-                                          restore_checkpoint(ckpt).theta))
+                                          restore_checkpoint(ckpt, device).theta))
         net.to(device)
 
         @torch.no_grad()

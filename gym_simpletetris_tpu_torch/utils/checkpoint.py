@@ -46,12 +46,14 @@ def save_checkpoint(path: str, state) -> str:
     return path
 
 
-def restore_checkpoint(path: str, device="cpu"):
-    """Read a state written by ``save_checkpoint`` onto ``device``: a file
+def restore_checkpoint(path: str, device="cuda"):
+    """Read a state written by ``save_checkpoint`` onto ``device``, the card
+    unless ``device="cpu"`` (a CUDA request without a card raises): a file
     that holds ``theta`` is an ``ESState``, one that holds a replay ring a
     ``DQNState`` (a ring of ``frame`` rows the frame / obs ring, else the
     legacy ring), any other a ``PPOState``."""
-    d = torch.load(os.path.abspath(path), map_location=device,
+    from ..api.env import check_device
+    d = torch.load(os.path.abspath(path), map_location=check_device(device),
                    weights_only=True)
     if "theta" in d:
         from ..train.es import ESState

@@ -372,3 +372,64 @@ def test_es_generation_kernels_match_plain(dev, monkeypatch):
     for name in mk:
         assert torch.equal(mk[name], mp[name]), name
     assert not torch.equal(k.theta, s0.theta)
+
+
+def _shim_run(kw, steps, seed):
+    """``steps`` random actions (out-of-range ones included) of the gym
+    shim on the card, resetting on done: every output, and the renders at
+    the end."""
+    from gym_simpletetris_tpu_torch import make
+    env = make("SimpleTetris-v0", backend="cuda", seed=seed, **kw)
+    rng = np.random.RandomState(seed)
+    out = [env.reset(return_info=True)]
+    for _ in range(steps):
+        r = env.step(int(rng.randint(-1, 8)))
+        out.append(r)
+        if r[2]:
+            out.append(env.reset(return_info=True))
+    out.append((env.render("rgb_array"), env.valid_action_count()))
+    return out
+
+
+@pytest.mark.parametrize("kw", [
+    dict(obs_type="ram", reward_step=True),
+    dict(obs_type="grayscale", extend_dims=True, lock_delay=1),
+    dict(obs_type="rgb", width=7, height=13, advanced_clears=True)])
+def test_shim_on_the_card_matches_plain(dev, monkeypatch, kw):
+    """The single-env shim at B = 1 through kernels A and B, bitwise equal
+    to the same run on the plain step and raster, none of which launches a
+    kernel."""
+    a0, b0 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    k = _shim_run(kw, 120, 3)
+    a1, b1 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    assert a1 - a0 == 120
+    assert b1 - b0 > (0 if kw["obs_type"] == "ram" else 120)
+    _plain_path(monkeypatch)
+    p = _shim_run(kw, 120, 3)
+    assert (cuda_step.step.launches, cuda_raster.rasterize_rows.launches) \
+        == (a1, b1)
+    assert len(k) == len(p)
+    for x, y in zip(k, p):
+        np.testing.assert_array_equal(x[0], y[0])
+        assert x[1:] == y[1:]
+
+
+@pytest.mark.parametrize("w,h", [(10, 20), (7, 13), (32, 20)])
+def test_render_kernel_at_160_and_512(dev, w, h):
+    """``render('rgb_array')`` (kernel B at 160 px) and the human image
+    (kernel B at 512 px, transposed) against the host raster."""
+    from gym_simpletetris_tpu_torch import TetrisEnv
+    from gym_simpletetris_tpu_torch.api.gym_compat import human_image
+    env = TetrisEnv(width=w, height=h, seed=1, device="cuda")
+    env.reset()
+    for a in [2, 0, 2, 1, 1, 2, 5, 2, 0, 0, 2]:
+        env.step(a)
+    board = env._board()
+    b0 = cuda_raster.rasterize_rows.launches
+    rgb = env.render("rgb_array")
+    human = human_image(env.config, env._rows(), 512)
+    assert cuda_raster.rasterize_rows.launches == b0 + 2
+    np.testing.assert_array_equal(
+        rgb[..., 0], raster.rasterize_host(board.T, h, w, 160))
+    np.testing.assert_array_equal(
+        human[..., 0], raster.rasterize_host(board, w, h, 512))

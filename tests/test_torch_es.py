@@ -208,7 +208,7 @@ def test_run_es_ckpt_and_evaluate_es(tmp_path):
                              "theta_norm", "grad_norm", "generation",
                              "env_steps"}
     assert lines[1]["env_steps"] == 2 * 8 * 2 * 16
-    back = restore_checkpoint(ck)
+    back = restore_checkpoint(ck, device="cpu")
     assert isinstance(back, es.ESState) and int(back.generation) == 2
     for f in ("theta", "key", "generation"):
         assert torch.equal(getattr(back, f), getattr(state, f)), f

@@ -1,8 +1,9 @@
 """Boundaries of the PyTorch port: it imports no JAX (nor flax or optax; the
-DQN path on the legacy ring and the obs ring and an ES generation run a few
-steps in the check), a CUDA request on a host
-without CUDA raises instead of running on the CPU, other devices raise, and
-a missing nvcc raises instead of falling back."""
+DQN path on the legacy ring and the obs ring, an ES generation, a shim and a
+standalone engine run a few steps in the check), it imports and runs
+without gymnasium, gym, pygame, PIL and tensorboardX, a CUDA request on a
+host without CUDA raises instead of running on the CPU, other devices
+raise, and a missing nvcc raises instead of falling back."""
 
 import os
 import subprocess
@@ -18,6 +19,21 @@ from gym_simpletetris_tpu_torch.core.state import init_state
 from gym_simpletetris_tpu_torch.ops import _build, cuda_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# The user-facing surfaces and utils: each imports without jax, and without
+# gymnasium, gym, pygame, PIL and tensorboardX (the card's machine has none).
+_NEW_MODULES = (
+    "import gym_simpletetris_tpu_torch.api.engine, "
+    "gym_simpletetris_tpu_torch.api.primitives, "
+    "gym_simpletetris_tpu_torch.api.gym_compat, "
+    "gym_simpletetris_tpu_torch.api.registry, "
+    "gym_simpletetris_tpu_torch.api.gymnasium_vector, "
+    "gym_simpletetris_tpu_torch.api.native_env, "
+    "gym_simpletetris_tpu_torch.native, "
+    "gym_simpletetris_tpu_torch.utils.metrics, "
+    "gym_simpletetris_tpu_torch.utils.video, "
+    "gym_simpletetris_tpu_torch.utils.profiling\n")
 
 
 def test_import_leaves_jax_out():
@@ -56,10 +72,55 @@ def test_import_leaves_jax_out():
         "from gym_simpletetris_tpu_torch.utils.checkpoint import "
         "load_flax_params\n"
         "load_flax_params('artifacts/ppo_lineclear_params.npz')\n"
+        + _NEW_MODULES +
+        "from gym_simpletetris_tpu_torch import TetrisEnv, TetrisEngine\n"
+        "env = TetrisEnv(obs_type='grayscale', device='cpu')\n"
+        "env.reset()\n"
+        "env.step(2)\n"
+        "env.render('rgb_array')\n"
+        "eng = TetrisEngine(10, 20, device='cpu')\n"
+        "eng.clear()\n"
+        "eng.step(2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'gym_simpletetris_tpu'))\n"
         "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_imports_without_the_optional_packages():
+    """With gymnasium, gym, pygame, PIL and tensorboardX blocked (a
+    ``sys.modules`` entry of None makes their import raise), the package
+    and every new module import and a shim runs, as on the card's
+    machine."""
+    code = (
+        "import sys\n"
+        "for m in ('gymnasium', 'gym', 'pygame', 'PIL', 'tensorboardX'):\n"
+        "    sys.modules[m] = None\n"
+        "import gym_simpletetris_tpu_torch as port\n"
+        + _NEW_MODULES +
+        "env = port.make(backend='cpu', obs_type='rgb')\n"
+        "env.reset()\n"
+        "env.step(0)\n"
+        "assert env.render('rgb_array').shape == (160, 160, 3)\n"
+        "assert port.register_gym() is False\n"
+        "from gym_simpletetris_tpu_torch.api.gymnasium_vector import "
+        "_TorchVectorCore\n"
+        "core = _TorchVectorCore(2, 0, device='cpu')\n"
+        "core.reset()\n"
+        "core.step([2, 2])\n"
+        "from gym_simpletetris_tpu_torch.utils.metrics import MetricLogger\n"
+        "MetricLogger(stdout=False).log({'a': 1}, 0)\n"
+        "for name in ('gymnasium', 'PIL', 'pygame', 'tensorboardX'):\n"
+        "    try:\n"
+        "        __import__(name)\n"
+        "        raise SystemExit(name + ' was importable')\n"
+        "    except ImportError:\n"
+        "        pass\n"
         "print('clean')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -108,6 +169,17 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         make_action_fn("es", cfg, 4, ckpt="missing.pt")
     assert run_es.parse_args([]).device == "cuda"
+    from gym_simpletetris_tpu_torch import TetrisEngine, TetrisEnv, make
+    from gym_simpletetris_tpu_torch.api.gymnasium_vector import (
+        _TorchVectorCore)
+    from gym_simpletetris_tpu_torch.utils.checkpoint import (
+        restore_checkpoint)
+    for entry in (lambda: TetrisEnv(), lambda: TetrisEngine(10, 20),
+                  lambda: make(), lambda: make(batch_size=2),
+                  lambda: _TorchVectorCore(2, 0),
+                  lambda: restore_checkpoint("missing.pt")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
 
 
 def test_other_devices_raise():
