@@ -46,7 +46,20 @@ shim on 8 random configurations (widths 4-16, heights 5-24, every flag);
 gymnasium vector adapter's core with next-step autoreset (ram 4096 envs x
 200 steps, grayscale 1024 x 100); 8e, the port's host C++
 ``NativeTetrisEnv`` (built with g++) against the shim on the card, on the
-same spawn draws; 8f, ``record_episode`` at 160 px. One line per phase;
+same spawn draws; 8f, ``record_episode`` at 160 px. Then the data-parallel
+layer (phase 9, last; the process group is destroyed before the last line):
+9a, at world 1 over NCCL (a TCP store on 127.0.0.1), ``ShardedTetrisEnv``
+at B = 4096 (ram and grayscale: reset, 64 steps, a 256-step storage
+rollout) against ``TetrisVectorEnv`` and the plain path, ``global_metrics``
+against the unsharded sums, and ``shard_map_step`` against the plain step
+with the key folded by 0; 9b, two ranks on the one card over gloo (spawned,
+2048 envs each, 64 steps) concatenated against 9a, and gloo's collectives
+on CUDA tensors; 9c, the mesh branches of the DQN (7f), obs-ring Rainbow
+(7i, 32 steps), PPO (ram 1024 x 64) and ES (defaults) trainers at world 1
+against the unsharded trainers and the plain path, and a world-1
+checkpoint against the unsharded file; 9d, ``collective_bench`` and
+``scaling_bench`` (for information); 9e, ``graft_entry.entry()`` and
+``dryrun_multichip(1)`` over NCCL. One line per phase;
 then a JSON line of the
 kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -701,13 +714,16 @@ def _plain_path():
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.models import heuristic
     from gym_simpletetris_tpu_torch.ops import raster
-    saved = E.engine_step, api_env.rasterize_rows, heuristic.engine_step
+    saved = (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
+             api_env.raster_accumulate)
     E.engine_step = heuristic.engine_step = E.engine_step_plain
     api_env.rasterize_rows = raster.rasterize_rows_plain
+    api_env.raster_accumulate = raster.raster_accumulate_plain
     try:
         yield
     finally:
-        E.engine_step, api_env.rasterize_rows, heuristic.engine_step = saved
+        (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
+         api_env.raster_accumulate) = saved
 
 
 def _play(cfg, act, steps):
@@ -1703,6 +1719,339 @@ def phase_surfaces():
     return launches
 
 
+# ----------------------------------------------------------------- phase 9
+
+P9_B = 4096               # 9a / 9b global batch
+P9_ROLL = 256             # 9a storage rollout
+P9_STEPS = 64             # 9a / 9b single steps
+P9_RING_STEPS = 32        # 9c obs ring, 7i's configuration cut to 32 steps
+P9_DQN_STEPS = 48         # 9c legacy ring, 7f's configuration
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _np_state(st):
+    """A state's tensors (an EnvState or a trainer state) as numpy, by
+    path."""
+    from gym_simpletetris_tpu_torch.train.sharding import leaves
+    return {".".join(map(str, p)): x.detach().cpu().numpy()
+            for p, x in leaves(st)}
+
+
+def _p9_env_run(cfg, env, seed=0):
+    """Reset, P9_STEPS steps and a P9_ROLL-step storage rollout of ``env``
+    (the sharded or the unsharded one), from seed 0 and one action
+    stream."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(9)
+    obs, s = env.reset(seed)
+    out = {"reset_obs": obs.cpu().numpy(), "reward": [], "done": []}
+    for _ in range(P9_STEPS):
+        a = torch.as_tensor(rng.randint(0, 7, P9_B), device="cuda")
+        obs, s, r, d, _ = env.step(s, a)
+        out["reward"].append(r.cpu().numpy())
+        out["done"].append(d.cpu().numpy())
+    out["obs"] = obs.cpu().numpy()
+    out["state64"] = _np_state(s)
+    acts = torch.as_tensor(rng.randint(0, 7, (P9_ROLL, P9_B)), device="cuda")
+    final, acc, rew, don = env.rollout(s, acts)
+    out.update(acc=acc.cpu().numpy(), roll_reward=rew.cpu().numpy(),
+               roll_done=don.cpu().numpy(), final=_np_state(final))
+    return out, final
+
+
+def phase_9a(mesh):
+    """ShardedTetrisEnv at world 1 against TetrisVectorEnv, and on the
+    plain step and raster; global_metrics; shard_map_step."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
+    from gym_simpletetris_tpu_torch.core import engine as E, threefry
+    from gym_simpletetris_tpu_torch.parallel import mesh as M
+    first64 = None
+    for o in ("ram", "grayscale"):
+        cfg = EnvConfig(obs_type=o, auto_reset=True, reward_step=True)
+        (sh, final), _, secs = _kernel_and_plain(
+            f"9a sharded {o}",
+            lambda: _p9_env_run(cfg, M.ShardedTetrisEnv(cfg, P9_B, mesh)),
+            key=lambda r: r[0])
+        un, final_u = _p9_env_run(cfg, TetrisVectorEnv(cfg, P9_B, "cuda"))
+        _same_tree(f"9a sharded {o} against TetrisVectorEnv", sh, un)
+        gm = {k: v.cpu().numpy() for k, v in
+              M.global_metrics(final, mesh).items()}
+        gu = {k: v.cpu().numpy() for k, v in
+              M.global_metrics(final_u).items()}
+        _same_tree(f"9a global_metrics {o}", gm, gu)
+        if o == "ram":
+            first64 = sh
+        log(f"phase 9a sharded env {o} 10x20 at world 1 (NCCL): reset + "
+            f"{P9_STEPS} steps + rollout T={P9_ROLL} at B={P9_B} bitwise "
+            f"equal to TetrisVectorEnv and to the plain step and raster; "
+            f"global_metrics equal ({ {k: v.item() for k, v in gm.items()} });"
+            f" {secs:.2f} s with the kernels")
+    cfg = EnvConfig(auto_reset=True, width=4, height=5)
+    env = TetrisVectorEnv(cfg, P9_B, "cuda")
+    _, st = env.reset(4)
+    step = M.shard_map_step(cfg, mesh)
+    a = torch.full((P9_B,), 2, device="cuda")
+    for t in range(8):
+        obs, nst, r, d, fin = step(st, a)
+        want = E.engine_step_plain(cfg, st.replace(
+            key=threefry.fold_in(st.key, 0)), a)
+        same = (torch.equal(nst.rows, want.state.rows)
+                and torch.equal(r, want.reward) and torch.equal(d, want.done)
+                and torch.equal(nst.key, threefry.split(st.key)[0])
+                and int(fin) == int(want.done.sum()))
+        if not same:
+            raise PhaseError(f"9a shard_map_step at step {t} != the plain "
+                             f"step with the key folded by 0")
+        st = nst
+    log("phase 9a shard_map_step at world 1: 8 steps equal to the plain "
+        "step with the key folded by 0, the finished count and the "
+        "re-derived key")
+    return first64
+
+
+def _p9b_rank(rank: int, store: str, out: str):
+    """9b's rank: ram 10x20, its half of B, over gloo on cuda:0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    _import_port()
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.parallel import mesh as M
+    M.init_distributed(f"file://{store}", 2, rank, backend="gloo")
+    try:
+        mesh = M.make_data_mesh("cuda")
+        group = M.data_axis(mesh)[0]
+        # gloo takes CUDA tensors as they are
+        x = torch.full((3,), float(rank + 1), device="cuda")
+        dist.all_reduce(x, group=group)
+        g = M.all_gather_cat(torch.full((2,), rank, device="cuda"), group)
+        y = torch.full((2,), float(rank), device="cuda")
+        dist.broadcast(y, dist.get_global_rank(group, 0), group=group)
+        coll = (x.tolist() == [3.0] * 3 and g.tolist() == [0, 0, 1, 1]
+                and y.tolist() == [0.0, 0.0])
+        for fn in _counters().values():
+            fn.launches = 0
+        cfg = EnvConfig(obs_type="ram", auto_reset=True, reward_step=True)
+        env = M.ShardedTetrisEnv(cfg, P9_B, mesh)
+        rng = np.random.RandomState(9)
+        obs, s = env.reset(0)
+        rec = {"reset_obs": obs.cpu().numpy(), "reward": [], "done": []}
+        for _ in range(P9_STEPS):
+            a = torch.as_tensor(rng.randint(0, 7, P9_B), device="cuda")
+            obs, s, r, d, _ = env.step(s, a)
+            rec["reward"].append(r.cpu().numpy())
+            rec["done"].append(d.cpu().numpy())
+        metrics = M.global_metrics(s, mesh)
+        torch.cuda.synchronize()
+        np.savez(out, reset_obs=rec["reset_obs"], obs=obs.cpu().numpy(),
+                 reward=np.stack(rec["reward"]), done=np.stack(rec["done"]),
+                 rows=s.rows.cpu().numpy(), coll=coll,
+                 env_steps=metrics["env_steps"].cpu().numpy(),
+                 launches=np.array([_counters()["step"].launches,
+                                    _counters()["raster"].launches]))
+    finally:
+        M.shutdown()
+
+
+def phase_9b(first64):
+    """Two ranks on the one card over gloo: each half of B = 4096, equal to
+    9a's first 64 steps. Returns the ranks' launches of A and B."""
+    import numpy as np
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix=".p9b_", dir=ROOT) as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke;"
+                " chip_smoke._p9b_rank({r}, {store!r}, {out!r})")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code.format(
+                root=ROOT, r=r, store=os.path.join(tmp, "store"),
+                out=outs[r])], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, lg) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise PhaseError(f"9b rank {r} exited {p.returncode}:\n"
+                                 f"{lg[-3000:]}")
+        ranks = [dict(np.load(o)) for o in outs]
+    if not all(bool(r["coll"]) for r in ranks):
+        raise PhaseError("9b: a gloo collective on CUDA tensors gave a "
+                         "wrong result")
+    cat = lambda k, ax: np.concatenate([r[k] for r in ranks], axis=ax)
+    got = {"reset_obs": cat("reset_obs", 0), "obs": cat("obs", 0),
+           "reward": cat("reward", 1), "done": cat("done", 1),
+           "rows": cat("rows", 1)}
+    want = {"reset_obs": first64["reset_obs"], "obs": first64["obs"],
+            "reward": np.stack(first64["reward"]),
+            "done": np.stack(first64["done"]),
+            "rows": first64["state64"]["rows"]}
+    _same_tree("9b two ranks against 9a", got, want)
+    steps = int(ranks[0]["env_steps"])
+    if steps != int(first64["state64"]["time"].sum()) or \
+            int(ranks[1]["env_steps"]) != steps:
+        raise PhaseError("9b: global_metrics over gloo != the unsharded sum")
+    launches = {"step": int(sum(r["launches"][0] for r in ranks)),
+                "raster": int(sum(r["launches"][1] for r in ranks)),
+                "raster_accumulate": 0}
+    log(f"phase 9b two ranks on one card over gloo (cuda:0 each): ram "
+        f"{P9_B // 2} envs a rank, reset + {P9_STEPS} steps concatenated "
+        f"bitwise equal to 9a; all_reduce, all_gather and broadcast take "
+        f"CUDA tensors as they are; global_metrics equal; kernel launches "
+        f"(the ranks') {launches}")
+    return launches
+
+
+def _p9_trainers():
+    """(name, run(mesh) -> (state, metrics)) of 9c's trainers."""
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.train import dqn, es, ppo
+    rainbow = dqn.DQNConfig(
+        env=EnvConfig(obs_type="grayscale", auto_reset=True,
+                      reward_step=True, penalise_holes=True),
+        num_envs=256, buffer_capacity=65536, frame_stack=4, n_step=3,
+        prioritized=True, distributional=True, dueling=True, noisy=True,
+        learn_every=4, frame_ring=True, ring_stacks=True)
+    legacy = dqn.DQNConfig(prioritized=True, n_step=3, dueling=True)
+
+    def dqn_run(cfg, steps):
+        def run(mesh):
+            init_fn, _, chunk_fn, _ = dqn.make_train(cfg, "cuda", mesh=mesh)
+            return chunk_fn(init_fn(0), steps)
+        return run
+
+    def ppo_run(mesh):
+        init_fn, update_fn, _ = ppo.make_ppo(ppo.PPOConfig(), "cuda",
+                                             mesh=mesh)
+        return update_fn(init_fn(0))
+
+    def es_run(mesh):
+        init_fn, gen_fn, _ = es.make_es(es.ESConfig(), "cuda", mesh=mesh)
+        return gen_fn(init_fn(0))
+
+    return (("dqn 7f", dqn_run(legacy, P9_DQN_STEPS)),
+            ("obs-ring rainbow 7i", dqn_run(rainbow, P9_RING_STEPS)),
+            ("ppo ram 1024x64", ppo_run), ("es defaults", es_run))
+
+
+def phase_9c(mesh, tmp):
+    """The trainers' mesh branches at world 1 against the unsharded
+    trainers (and the mesh run on the plain step and raster), bitwise;
+    a checkpoint saved at world 1 continues identically."""
+    import filecmp
+    import torch
+    from gym_simpletetris_tpu_torch.train import dqn
+    from gym_simpletetris_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    host = lambda r: (_np_state(r[0]),
+                      {k: v.cpu().numpy() for k, v in r[1].items()})
+    torch.use_deterministic_algorithms(True)
+    try:
+        launches, secs = {}, {}
+        for name, run in _p9_trainers():
+            sharded, n, secs[name] = _kernel_and_plain(
+                f"9c {name} mesh", lambda: host(run(mesh)))
+            _add(launches, n)
+            _same_tree(f"9c {name}: mesh at world 1 against unsharded",
+                       sharded, host(run(None)))
+        # a checkpoint at world 1, byte for byte the unsharded one's
+        cfg = dqn.DQNConfig(prioritized=True, n_step=3, dueling=True)
+        files, runs = [], []
+        for m, sub in ((mesh, "mesh"), (None, "unsharded")):
+            os.makedirs(os.path.join(tmp, sub))
+            init_fn, _, chunk_fn, _ = dqn.make_train(cfg, "cuda", mesh=m)
+            st, _ = chunk_fn(init_fn(0), 8)
+            runs.append((chunk_fn, st))
+            files.append(save_checkpoint(os.path.join(tmp, sub, "dqn.pt"),
+                                         st, mesh=m))
+        if not filecmp.cmp(*files, shallow=False):
+            raise PhaseError("9c: the world-1 checkpoint != the unsharded "
+                             "one")
+        chunk_fn, st = runs[0]
+        again = restore_checkpoint(files[0], "cuda", mesh=mesh)
+        _same_tree("9c checkpoint continues",
+                   host(chunk_fn(_clone(st), 8)), host(chunk_fn(again, 8)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"phase 9c mesh trainers at world 1: {', '.join(secs)} bitwise "
+        f"equal to the unsharded trainers and to the plain step and raster "
+        f"(deterministic algorithms on); s with the kernels "
+        f"{ {k: round(v, 2) for k, v in secs.items()} }; a checkpoint saved "
+        f"at world 1 is the unsharded file byte for byte and continues "
+        f"identically; kernel launches {launches}")
+    return launches
+
+
+def phase_9de(mesh, card):
+    """9d, for information: collective_bench and scaling_bench at world 1;
+    9e: graft_entry.entry() and dryrun_multichip(1) over NCCL."""
+    import io
+    from gym_simpletetris_tpu_torch import graft_entry
+    from gym_simpletetris_tpu_torch.parallel import (collective_bench,
+                                                     scaling_bench)
+    cb = collective_bench.bench_collectives(mesh, mb=64, iters=10)
+    log(f"phase 9d collective_bench at world 1, 64 MB ({card}): "
+        f"{json.dumps(cb)}")
+    for extra in ([], ["--train"]):
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = scaling_bench.main(["--per-device", "4096", "--steps",
+                                      "256", "--obs", "ram"] + extra)
+        log(f"phase 9d scaling_bench {' '.join(extra) or 'rollout'} at 1 "
+            f"device, per-device 4096, ram, 256 steps ({card}): "
+            f"{json.dumps(res)}")
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    if tuple(out.shape) != (8, 7) or not bool(out.isfinite().all()):
+        raise PhaseError(f"9e entry(): output {tuple(out.shape)}")
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        graft_entry.dryrun_multichip(1)
+    log(f"phase 9e graft_entry.entry(): dueling NatureDQN forward on 8 x 84 "
+        f"x 84 grayscale, {tuple(out.shape)}; dryrun_multichip(1) over NCCL: "
+        f"{said.getvalue().strip().splitlines()[-1]}")
+
+
+def phase_mesh(card, tmp):
+    """Phase 9: the data-parallel layer on the card. World 1 over NCCL
+    (9a, 9c-9e), two ranks over gloo on the one card (9b). Launch counts
+    from 0 before the phase, without the plain runs and the 9c unsharded
+    runs' copies counted twice; A and B must have launched in 9a-9c and C
+    in 9a. Returns the launches."""
+    from gym_simpletetris_tpu_torch.parallel import mesh as M
+    for fn in _counters().values():
+        fn.launches = 0
+    M.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = M.make_data_mesh("cuda")
+        first64 = phase_9a(mesh)
+        n9a = _launches()
+        if n9a["raster_accumulate"] <= 0:
+            raise PhaseError("kernel raster_accumulate was not launched in 9a")
+        launches = dict(n9a)
+        _add(launches, phase_9b(first64))
+        _add(launches, phase_9c(mesh, tmp))
+        for k in ("step", "raster"):
+            if launches[k] <= 0:
+                raise PhaseError(f"kernel {k} was not launched in 9a-9c")
+        phase_9de(mesh, card)
+    finally:
+        M.shutdown()
+    log(f"phase 9 data-parallel layer: kernel launches {launches}")
+    return launches
+
+
 def main() -> int:
     # deterministic cuBLAS for the DQN phases' kernel-against-plain chunk;
     # it must be set before cuBLAS starts
@@ -1764,6 +2113,10 @@ def main() -> int:
             took("7k-7l")
         surface_launches = phase_surfaces()
         took("8a-8f")
+        with tempfile.TemporaryDirectory(prefix=".mesh_smoke_",
+                                         dir=ROOT) as tmp:
+            mesh_launches = phase_mesh(card, tmp)
+        took("9a-9e")
         log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -1774,7 +2127,8 @@ def main() -> int:
     kernels = []
     for suffix, n, err, t, d in (
             ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
-                  + surface_launches[k] for k, v in launches.items()},
+                  + surface_launches[k] + mesh_launches[k]
+                  for k, v in launches.items()},
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),

@@ -93,11 +93,12 @@ def apply_reset_mask(cfg: EnvConfig, state: EnvState, emitted: torch.Tensor,
 
 def reset_fn(cfg: EnvConfig, batch_size: int, key,
              injected_r: Optional[torch.Tensor] = None,
-             device="cuda") -> Tuple[torch.Tensor, EnvState]:
+             device="cuda", env_offset: int = 0) -> Tuple[torch.Tensor, EnvState]:
     """Fresh engine + episode reset. The observation is the empty board.
     On the card unless ``device="cpu"``; without a card a CUDA request
-    raises."""
-    state = init_state(cfg, batch_size, key, check_device(device))
+    raises. ``env_offset``: the first env's index in a sharded global batch
+    (the state carries it to every later draw)."""
+    state = init_state(cfg, batch_size, key, check_device(device), env_offset)
     state, emitted = E.engine_clear(cfg, state, injected_r=injected_r)
     return build_observation(cfg, emitted), state
 

@@ -264,10 +264,12 @@ def piece_weight_sum(counts: torch.Tensor) -> torch.Tensor:
 
 def spawn_draw(state: EnvState, injected_r: Optional[torch.Tensor] = None):
     """Advance the engine key and take this step's spawn draws:
-    (carry key, r int32[B]). ``injected_r`` replaces the threefry draws."""
+    (carry key, r int32[B]), for the envs from ``state.env_offset`` of the
+    global batch. ``injected_r`` replaces the threefry draws."""
     carry_key, draw_key = threefry.split(state.key)
     if injected_r is None:
-        r = threefry.draw_spawn_r(draw_key, state.shape_counts)
+        r = threefry.draw_spawn_r(draw_key, state.shape_counts,
+                                  state.env_offset)
     else:
         r = torch.as_tensor(injected_r, device=state.device).to(_I32)
     return carry_key, r.contiguous()

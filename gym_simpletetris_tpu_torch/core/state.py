@@ -8,6 +8,12 @@ entry per env for the scalars, ``[7, B]`` shape counts, and the engine's
 threefry key as 2 words. The uint32 words of the JAX state (rows, key) are
 held as int32 tensors with the same bits: torch's uint32 lacks shifts and
 arithmetic, and the bits are what the kernels read.
+
+``env_offset`` is not a tensor: it is the position of this batch's first env
+in a global batch sharded over a data-parallel mesh (``parallel/mesh.py``),
+0 for an unsharded batch. The per-env spawn draws take their counters from
+it, so a block of envs draws what the same envs of the global batch draw.
+``replace`` carries it; ``state_to_numpy`` and the kernels ignore it.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ class EnvState:
     deaths: torch.Tensor        # int32[B]
     shape_counts: torch.Tensor  # int32[7, B]
     key: torch.Tensor           # int32[2] threefry key data (uint32 bits)
+    env_offset: int = 0         # first env's index in the global batch
 
     @property
     def batch_size(self) -> int:
@@ -87,10 +94,11 @@ def rows_shape(config: EnvConfig, batch_size: int) -> tuple:
 
 
 def init_state(config: EnvConfig, batch_size: int, key,
-               device="cuda") -> EnvState:
+               device="cuda", env_offset: int = 0) -> EnvState:
     """Fresh-engine state (TetrisEngine.__init__): time and score start at -1,
     everything else zero, no piece spawned yet. On the card unless
-    ``device="cpu"``; without a card torch raises."""
+    ``device="cpu"``; without a card torch raises. ``env_offset``: the
+    first env's index in a sharded global batch."""
     b = batch_size
     device = torch.device(device)
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
@@ -99,7 +107,7 @@ def init_state(config: EnvConfig, batch_size: int, key,
         rows=z(*rows_shape(config, b)), piece=z(b), rot=z(b), ax=z(b), ay=z(b),
         lock=z(b), time=m1(), score=m1(), holes=z(b), lines_cleared=z(b),
         piece_height=z(b), deaths=z(b), shape_counts=z(7, b),
-        key=_key_tensor(key, device))
+        key=_key_tensor(key, device), env_offset=int(env_offset))
 
 
 def state_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> EnvState:

@@ -16,6 +16,14 @@ Bit-for-bit the stream of ``jax.random`` with threefry keys and
 - ``flax_rng(key, *path, counter)`` is the key flax's ``make_rng`` derives
   for a module.
 
+Block draws: ``random_bits`` and every draw built on it take an optional
+``block=(axis, start, stop)`` of the global ``shape`` and return exactly that
+slice of the global draw, its counters the flat row-major indices of the
+global shape (JAX's partitionable threefry), at a cost in the block's size
+alone. A rank of a data-parallel mesh draws its own envs' share of a global
+draw so: a ``[B]`` or batch-major ``[B, k]`` block is contiguous in the
+counters, a batch-minor ``[k, B]`` one strided.
+
 Words are held in int64 tensors with values in [0, 2**32) and masked after
 every add and shift, so no signed 32-bit overflow or sign-extending right
 shift is ever involved. Keys are int32[2] tensors carrying the uint32 bits.
@@ -81,21 +89,61 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return _to_i32(torch.stack([y0, y1]))
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def _shape(shape) -> tuple:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def block_shape(shape, block=None) -> tuple:
+    """The shape of ``block=(axis, start, stop)`` of the global ``shape``
+    (the global shape itself without a block)."""
+    shape = _shape(shape)
+    if block is None:
+        return shape
+    axis, start, stop = block
+    axis %= len(shape)
+    if not 0 <= start <= stop <= shape[axis]:
+        raise ValueError(f"block {block} outside the shape {shape}")
+    return shape[:axis] + (stop - start,) + shape[axis + 1:]
+
+
+def _counters(shape: tuple, block, device) -> torch.Tensor:
+    """int64 flat row-major indices into the global ``shape`` of the
+    elements of ``block`` (all of them without one), in the block's
+    row-major order."""
+    if block is None:
+        return torch.arange(math.prod(shape), dtype=torch.int64,
+                            device=device)
+    axis, start, stop = block
+    local = block_shape(shape, block)
+    if len(shape) == 1:
+        return torch.arange(start, stop, dtype=torch.int64, device=device)
+    ctr = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        idx = torch.arange(local[d], dtype=torch.int64, device=device)
+        if d == axis % len(shape):
+            idx = idx + start
+        ctr = ctr + (idx * stride).reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= shape[d]
+    return ctr.reshape(-1)
+
+
+def random_bits(key: torch.Tensor, shape, block=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
-    [0, 2**32); an int ``shape`` means ``(shape,)``."""
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    [0, 2**32); an int ``shape`` means ``(shape,)``. With ``block=(axis,
+    start, stop)``, only that slice of the global draw."""
+    shape = _shape(shape)
     k0, k1 = _key_words(key)
-    ctr = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    ctr = _counters(shape, block, key.device)
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
-    return (y0 ^ y1).reshape(shape)
+    return (y0 ^ y1).reshape(block_shape(shape, block))
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, block=None) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under the
     exponent of 1.0, minus 1, scaled, then ``max(minval, .)``."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, block)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
@@ -208,23 +256,23 @@ def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
 _F32_ABOVE_M1 = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
+def normal(key: torch.Tensor, shape, block=None) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` for u
     uniform in (-1, 1)."""
-    u = uniform(key, shape, _F32_ABOVE_M1, 1.0)
+    u = uniform(key, shape, _F32_ABOVE_M1, 1.0, block)
     return float(torch.tensor(math.sqrt(2), dtype=torch.float32)) \
         * erf_inv_f32(u)
 
 
-def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval, maxval,
+            block=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` for int32: two
     32-bit draws from a split of the key folded into the span
     ``maxval - minval`` (1 where maxval <= minval) in uint32 arithmetic.
     ``minval`` / ``maxval`` may be ints or int tensors that broadcast to
-    ``shape``. int32."""
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    ``shape`` (to the block's shape with a ``block``). int32."""
     k1, k2 = split(key)
-    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    hi, lo = random_bits(k1, shape, block), random_bits(k2, shape, block)
     dev = key.device
     mn = torch.as_tensor(minval, device=dev).to(torch.int64)
     mx = torch.as_tensor(maxval, device=dev).to(torch.int64)
@@ -258,16 +306,25 @@ def flax_rng(key: torch.Tensor, *path) -> torch.Tensor:
     return fold_in(key, int.from_bytes(m.digest()[:4], "big"))
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape, block=None) -> torch.Tensor:
     """``jax.random.gumbel`` in float32, mode "low" (the default):
     ``-log(-log(u))`` for u uniform in [tiny, 1)."""
-    return -log_f32(-log_f32(uniform(key, shape, _F32_TINY, 1.0)))
+    return -log_f32(-log_f32(uniform(key, shape, _F32_TINY, 1.0, block)))
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                block=None) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis (float32
-    logits): the Gumbel-max trick, first index on ties. int64."""
-    return torch.argmax(gumbel(key, logits.shape) + logits, dim=-1)
+    logits): the Gumbel-max trick, first index on ties. int64. With
+    ``block=(0, start, stop)``, ``logits`` are rows [start, stop) of the
+    global batch and the draw is theirs (the leading axis's global size does
+    not enter the counters)."""
+    shape = tuple(logits.shape)
+    if block is not None:
+        if block[0] != 0:
+            raise ValueError("categorical blocks run along the batch axis 0")
+        shape = (block[2],) + shape[1:]
+    return torch.argmax(gumbel(key, shape, block) + logits, dim=-1)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -283,10 +340,14 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     return x
 
 
-def draw_spawn_r(draw_key: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def draw_spawn_r(draw_key: torch.Tensor, counts: torch.Tensor,
+                 offset: int = 0) -> torch.Tensor:
     """Spawn draws ``r = 1 + bits mod sum(m)`` (unsigned modulo), int32[B]:
-    the port of the JAX engine's ``draw_spawn_r``."""
+    the port of the JAX engine's ``draw_spawn_r``, for the envs [offset,
+    offset + B) of the global batch (``counts`` are theirs)."""
     from .engine import piece_weight_sum
     s = piece_weight_sum(counts).to(torch.int64)
-    bits = random_bits(draw_key, s.shape[0])
+    b = s.shape[0]
+    bits = random_bits(draw_key, offset + b,
+                       (0, offset, offset + b) if offset else None)
     return (1 + bits % s).to(torch.int32)

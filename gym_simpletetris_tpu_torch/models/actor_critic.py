@@ -16,6 +16,14 @@ the flax one, runs ``F.conv2d`` in NCHW, and flattens in NHWC order, so the
 ``fc`` weight is the plain transpose of the flax kernel. A float32 network
 convolves in float32 on the card too, not in cuDNN's default TF32.
 
+The cast of a parameter to ``dtype`` rounds its gradient to ``dtype`` on
+the way back, as flax's does; each use of a weight or bias is one such
+cast point. A data-parallel learner sums the gradients of its ranks'
+shares of a batch: under ``cast_points()`` every cast point of a forward
+passes its float32 gradient through unrounded and is recorded, so that the
+learner can sum the shares first and round once, as the unsharded
+gradient is rounded (``train.sharding.DataParallel.grads``).
+
 ``params_from_flax`` carries a flax parameter tree across. Fresh parameters
 follow flax's default initialisers (LeCun-normal truncated kernels, zero
 biases), drawn from a ``torch.Generator``.
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,16 +52,87 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
         nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
+# the cast points recorded by ``cast_points``: (point, dtype of the cast)
+_POINTS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def cast_points():
+    """Within the block, each cast of a parameter (or a tensor made from
+    parameters, as a NoisyDense's noisy weight) that autograd records keeps
+    its float32 gradient unrounded; yields the list of (point, dtype) it
+    fills: ``grad(loss, point)`` is that float32 gradient, and rounding it
+    to ``dtype`` gives what the block's absence would have given."""
+    global _POINTS
+    saved, _POINTS = _POINTS, []
+    try:
+        yield _POINTS
+    finally:
+        _POINTS = saved
+
+
+def _recording(p: torch.Tensor) -> bool:
+    return _POINTS is not None and torch.is_grad_enabled() and p.requires_grad
+
+
+class _CastThrough(torch.autograd.Function):
+    """``p.to(dtype).float()`` whose backward passes the float32 gradient
+    through unrounded."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        return p.to(dtype=dtype, copy=True).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _BiasAddThrough(torch.autograd.Function):
+    """``y + b.to(y.dtype).reshape(shape)`` whose bias gradient is the
+    float32 sum over the broadcast axes, unrounded."""
+
+    @staticmethod
+    def forward(ctx, y, b, shape):
+        b = b.to(y.dtype).reshape(shape)
+        ctx.shape = b.shape
+        return y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.float().sum_to_size(ctx.shape).reshape(-1), None
+
+
+def cast(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A parameter as a layer computes with it: ``p.to(dtype).float()``;
+    a cast point under ``cast_points``."""
+    if not _recording(p):
+        return p.to(dtype).float()
+    out = _CastThrough.apply(p, dtype)
+    _POINTS.append((out, dtype))
+    return out
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor, shape=(-1,)) -> torch.Tensor:
+    """``y + b.to(y.dtype)``, ``b`` viewed as ``shape`` (its axis broadcast
+    against ``y``'s); a cast point under ``cast_points``."""
+    if not _recording(b):
+        return y + b.to(y.dtype).reshape(shape)
+    point = b.view_as(b)            # this use's own tensor
+    _POINTS.append((point, y.dtype))
+    return _BiasAddThrough.apply(y, point, shape)
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            dtype: torch.dtype, round_sum: bool = True) -> torch.Tensor:
     """``x @ weight.T + bias`` as jitted flax computes it in ``dtype``: the
     product of rounded operands summed in float32 and rounded once, then the
     bias added in ``dtype``; ``round_sum=False`` adds the bias in float32
     and returns float32."""
-    y = (x.to(dtype).float() @ weight.to(dtype).float().T).to(dtype)
+    y = (x.to(dtype).float() @ cast(weight, dtype).T).to(dtype)
     if round_sum:
-        return y + bias.to(dtype)
-    return y.float() + bias.to(dtype).float()
+        return add_bias(y, bias)
+    return y.float() + cast(bias, dtype)
 
 
 class Dense(nn.Module):
@@ -104,13 +183,13 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        x, w = x.to(dt).float(), self.weight.to(dt).float()
+        x, w = x.to(dt).float(), cast(self.weight, dt)
         # cuDNN convolves float32 in TF32 unless told not to; bf16-valued
         # operands are exact in TF32 and keep it
         exact = _ieee_conv() if dt == torch.float32 else contextlib.nullcontext()
         with exact:
             y = F.conv2d(x, w, stride=self.stride).to(dt)
-        return y + self.bias.to(dt)[:, None, None]
+        return add_bias(y, self.bias, (-1, 1, 1))
 
 
 class ConvTrunk(nn.Module):

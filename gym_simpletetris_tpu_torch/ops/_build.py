@@ -5,13 +5,18 @@ process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ``ctypes`` loads. The
 library goes into ``_build/`` inside this package (listed in ``.gitignore``),
 named by a hash of the sources and the flags, so a changed source builds anew
-and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed build
-raises; nothing falls back to the plain PyTorch versions.
+and an unchanged one is loaded as it is. A build holds an exclusive file
+lock on ``_build/.lock``, so processes that start at once (the ranks of a
+data-parallel run) build the library once and the others load it; the
+library appears by an atomic rename, never half written. A missing ``nvcc``
+or a failed build raises; nothing falls back to the plain PyTorch versions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -62,6 +67,19 @@ def _check(cmd, returncode: int, log: str) -> None:
                            f"{' '.join(cmd)}\n{log}")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """The build directory's exclusive lock (released on exit, and by the
+    system if the process dies)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> dict:
     """Compile the kernels unless the library for these sources exists.
     Returns {"path", "seconds", "log"}; ``log`` holds nvcc's output (the
@@ -69,7 +87,13 @@ def build() -> dict:
     path = library_path()
     if path.exists():
         return {"path": path, "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        if path.exists():          # another process built it meanwhile
+            return {"path": path, "seconds": 0.0, "log": ""}
+        return _compile(path)
+
+
+def _compile(path: Path) -> dict:
     nvcc, pid = _nvcc(), os.getpid()
     tmp = path.with_name(f"{path.name}.{pid}.tmp")
     objs = [path.with_name(f"{path.stem}.{src.stem}.{pid}.o")

@@ -252,5 +252,6 @@ def _launch(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
         emitted = emitted.view(call.rows_shape)
     *scalars, reward, done = small.split_with_sizes(call.small_sizes)
     done = done.view(torch.bool)
-    return StepOut(EnvState(rows_out, *scalars, counts, key), emitted,
+    return StepOut(EnvState(rows_out, *scalars, counts, key,
+                            env_offset=state.env_offset), emitted,
                    reward.view(torch.float32), done[:B] if B % 4 else done)

@@ -27,6 +27,21 @@ window); ``frame_ring=True`` stores one row per actor step and folds the
 n-step return when a batch is sampled, with no window: a single frame
 (the actor reads its stack back out of the ring), or with ``ring_stacks``
 the whole stack (the obs ring, the JAX package's flagship image layout).
+
+Data parallelism (``make_train(cfg, mesh=...)``, a ``DeviceMesh`` with a
+``data`` axis; one process per card): each rank owns a block of the envs
+and their columns of the ring, its ``obs``, its n-step window and its env
+state, and draws its envs' share of every per-env draw (``env_offset``), so
+its actor and its inserts are the unsharded trainer's rows, with no
+communication. Parameters, target and Adam state are replicated (broadcast
+from rank 0 at init). A learner step draws the unsharded batch on every
+rank alike (the PER grid all-gathered), each drawn row is gathered by the
+rank owning its env column and the batch assembled by one ``all_reduce``;
+each rank takes the gradient of its share of the rows (the loss scaled by
+share / batch), and one ``all_reduce`` of one flat buffer sums the
+gradients and the learner metrics. The PER write-back all-gathers the TD
+errors and each rank writes its own columns. At world 1 the mesh trainer is
+the unsharded one bit for bit; above it the gradient sum's order differs.
 """
 
 from __future__ import annotations
@@ -46,15 +61,12 @@ from ..core.engine import NUM_ACTIONS
 from ..core.state import EnvState, _key_tensor
 from ..models.dqn import build_q_network
 from .ppo import _seed_of, adam_update, clip_by_global_norm
+from .sharding import DataParallel
 from .replay import (FrameRingState, ReplayState, _recip_f32, _sum_f32,
                      frame_ring_init, frame_ring_insert_frame,
-                     frame_ring_insert_step, frame_ring_sample,
-                     frame_ring_sample_prioritized, frame_ring_sample_slots,
-                     frame_ring_sample_slots_prioritized,
-                     frame_ring_stack_newest, replay_init, replay_insert,
-                     replay_sample, replay_sample_prioritized,
-                     replay_sample_slots, replay_sample_slots_prioritized,
-                     replay_update_priority, replay_update_priority_slots)
+                     frame_ring_insert_step, frame_ring_stack_newest,
+                     gather_rows, replay_init, replay_insert, sample_draw,
+                     update_priority_block)
 
 _LEARNER_KEYS = ("loss", "mean_q", "td_abs_err")
 
@@ -134,7 +146,7 @@ class DQNState:
 
 
 def support_f32(v_min: float, v_max: float, num_atoms: int,
-                device="cpu") -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """The C51 support, ``jnp.linspace(v_min, v_max, num_atoms)``'s formula
     in float32: ``start * (1 - t) + stop * t`` for t = i / (n - 1), the last
     point ``stop``. About half the points sit an ulp or two from the JAX
@@ -180,9 +192,12 @@ def _select(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return (x * oh).sum(dim=1)
 
 
-def make_train(cfg: DQNConfig, device="cuda"):
+def make_train(cfg: DQNConfig, device="cuda", mesh=None):
     """Returns (init_fn, train_step_fn, train_chunk_fn, network) on
     ``device`` ("cpu" or "cuda"; a CUDA request without a card raises).
+    With ``mesh`` (a ``DeviceMesh`` over the ranks, data axis only), the
+    rank's share of a data-parallel trainer (module docstring); its state
+    holds the rank's block, its metrics are global.
 
     init_fn(key) -> DQNState                # key: int seed or 2 key words
     train_step_fn(state) -> (state, metrics)           # one actor+learner step
@@ -196,6 +211,7 @@ def make_train(cfg: DQNConfig, device="cuda"):
     ecfg = cfg.env
     if not ecfg.auto_reset:
         raise ValueError("DQN training requires env auto_reset=True")
+    dp = DataParallel(mesh, device, cfg.num_envs, cfg.learn_batch)
     base_shape = spaces.observation_space(ecfg).shape
     k = cfg.frame_stack
     obs_shape = base_shape + (k,) if k > 1 else base_shape
@@ -205,8 +221,10 @@ def make_train(cfg: DQNConfig, device="cuda"):
                                     noisy=cfg.noisy)
     network = build().to(device)
     support = support_f32(cfg.v_min, cfg.v_max, cfg.num_atoms, device)
-    B = cfg.num_envs
+    B, b = cfg.num_envs, dp.b          # the global env batch, the rank's
+    L = cfg.learn_batch
     slots = cfg.buffer_capacity // B
+    blk = dp.block
 
     def apply_net(params, obs, nk=None):
         """Forward pass; a noisy network draws fresh noise from ``nk``."""
@@ -241,22 +259,24 @@ def make_train(cfg: DQNConfig, device="cuda"):
 
     def init_fn(key) -> DQNState:
         k_env, k_net, k_state = threefry.split(_key_tensor(key, device), 3)
-        obs, env_state = reset_fn(ecfg, B, k_env, device=device)
+        obs, env_state = reset_fn(ecfg, b, k_env, device=device,
+                                  env_offset=dp.offset)
         net = build()
         net.reset_parameters(torch.Generator().manual_seed(_seed_of(k_net)))
-        params = {n: v.detach().to(device) for n, v in net.state_dict().items()}
+        params = dp.broadcast({n: v.detach().to(device)
+                               for n, v in net.state_dict().items()})
         zeros = lambda: {n: torch.zeros_like(v) for n, v in params.items()}
         if cfg.frame_ring:
             # no window and no prefill: a slot matures once its n
             # successors exist
-            replay = frame_ring_init(cfg.buffer_capacity, base_shape, B, k,
+            replay = frame_ring_init(slots * b, base_shape, b, k,
                                      cfg.n_step, cfg.gamma,
                                      stacked=cfg.ring_stacks, device=device)
             obs = obs.to(torch.uint8)
             if cfg.ring_stacks:
                 obs = _stack_reset(obs)
         else:
-            replay = replay_init(cfg.buffer_capacity, obs_shape, B, device)
+            replay = replay_init(slots * b, obs_shape, b, device)
             obs = _stack_reset(obs)
         state = DQNState(
             params=params, target_params=dict(params),
@@ -277,16 +297,16 @@ def make_train(cfg: DQNConfig, device="cuda"):
     def _empty_window():
         n1 = cfg.n_step - 1
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
-        return {"obs": z((n1, B) + obs_shape, torch.uint8),
-                "action": z((n1, B), torch.int8),
-                "reward": z((n1, B), torch.float32),
+        return {"obs": z((n1, b) + obs_shape, torch.uint8),
+                "action": z((n1, b), torch.int8),
+                "reward": z((n1, b), torch.float32),
                 # True done marks the slots invalid until prefill fills them
-                "done": torch.ones((n1, B), dtype=torch.bool, device=device)}
+                "done": torch.ones((n1, b), dtype=torch.bool, device=device)}
 
     @torch.no_grad()
     def _prefill_step(state: DQNState) -> DQNState:
         k_act, key = threefry.split(state.key)
-        action = threefry.randint(k_act, (B,), 0, NUM_ACTIONS)
+        action = threefry.randint(k_act, (B,), 0, NUM_ACTIONS, blk)
         raw_next, env_state, reward, done, _ = step_fn(ecfg, state.env_state,
                                                        action)
         next_obs = _stack_next(state.obs, raw_next, done)
@@ -334,7 +354,7 @@ def make_train(cfg: DQNConfig, device="cuda"):
         err = q_sel - target
         loss = torch.where(err.abs() <= 1.0, 0.5 * err * err,
                            err.abs() - 0.5)
-        return (loss * weights).mean(), (err, q_sel)
+        return dp.part_mean(loss * weights, L), (err, q_sel)
 
     def c51_loss(params, target_params, batch, weights, nkey):
         """Projected categorical cross-entropy; the per-sample
@@ -357,20 +377,9 @@ def make_train(cfg: DQNConfig, device="cuda"):
             m = project_distribution(p_next, tz, cfg.v_min, cfg.v_max,
                                      cfg.num_atoms)
         ce = -(m * logp_a).sum(dim=-1)
-        return (ce * weights).mean(), (ce, q_sel)
+        return dp.part_mean(ce * weights, L), (ce, q_sel)
 
     loss_fn = c51_loss if cfg.distributional else td_loss
-    # the samplers of the layout: PER and uniform, slot rows or transitions
-    if cfg.frame_ring:
-        sample_p, sample_u = ((frame_ring_sample_slots_prioritized,
-                               frame_ring_sample_slots) if cfg.sample_slots
-                              else (frame_ring_sample_prioritized,
-                                    frame_ring_sample))
-    else:
-        sample_p, sample_u = ((replay_sample_slots_prioritized,
-                               replay_sample_slots) if cfg.sample_slots
-                              else (replay_sample_prioritized, replay_sample))
-
     @torch.no_grad()
     def actor_half(state: DQNState):
         """One env interaction and replay insert: (state, (k_sample,
@@ -392,8 +401,8 @@ def make_train(cfg: DQNConfig, device="cuda"):
             action, eps_metric = greedy, torch.zeros((), device=device)
         else:
             eps_metric = epsilon(state.step)
-            rand_a = threefry.randint(k_act, (B,), 0, NUM_ACTIONS)
-            explore = threefry.uniform(k_eps, (B,)) < eps_metric
+            rand_a = threefry.randint(k_act, (B,), 0, NUM_ACTIONS, blk)
+            explore = threefry.uniform(k_eps, (B,), block=blk) < eps_metric
             action = torch.where(explore, rand_a, greedy)
         raw_next, env_state, reward, done, info = step_fn(
             ecfg, state.env_state, action)
@@ -418,11 +427,31 @@ def make_train(cfg: DQNConfig, device="cuda"):
         state = state.replace(replay=replay, env_state=env_state,
                               obs=next_obs, key=key, step=state.step + 1,
                               window=window)
-        metrics = {"mean_reward": reward.mean(),
+        metrics = {"mean_reward": dp.share_mean(reward),
                    "episodes_done": done.sum().float(),
                    "lines_cleared": info["lines_delta"].sum().float(),
                    "epsilon": eps_metric}
         return state, (k_sample, k_nlearn, metrics)
+
+    def learner_batch(replay, k_sample, beta):
+        """The learner batch over the global ring, drawn alike on every
+        rank (the priority grid gathered); each drawn row gathered by the
+        rank that owns its env column and assembled on every rank:
+        (batch, weights, slot, env), each of L rows."""
+        slot, env, weights = sample_draw(
+            replay, k_sample, L, beta, prioritized=cfg.prioritized,
+            slots=cfg.sample_slots, width=B,
+            priority=dp.gather(replay.priority, 1) if cfg.prioritized
+            else replay.priority)
+        if mesh is None:
+            batch = gather_rows(replay, slot, env)
+        else:
+            own = (env >= dp.offset) & (env < dp.offset + b)
+            batch = dp.assemble(gather_rows(
+                replay, slot, (env - dp.offset).clamp(0, b - 1)), own)
+        if weights is None:
+            weights = torch.ones(L, device=device)
+        return batch, weights, slot, env
 
     def learner_half(state: DQNState, k_sample, k_nlearn,
                      learn_steps: Optional[int] = None):
@@ -432,37 +461,36 @@ def make_train(cfg: DQNConfig, device="cuda"):
         if learn_steps is None:
             learn_steps = int(state.learn_steps)
         replay = state.replay
+        beta = None
         if cfg.prioritized:
             frac = torch.clamp(state.learn_steps.float()
                                * _recip_f32(cfg.per_beta_steps), 0, 1)
             beta = threefry._fma(1.0 - cfg.per_beta0, frac, cfg.per_beta0)
-            batch, per_idx, weights = sample_p(replay, k_sample,
-                                               cfg.learn_batch, beta)
-        else:
-            batch = sample_u(replay, k_sample, cfg.learn_batch)
-            if cfg.sample_slots:
-                batch = batch[0]
-            weights = torch.ones(cfg.learn_batch, device=device)
+        batch, weights, slot, env = learner_batch(replay, k_sample, beta)
+        batch = {n: dp.share(v) for n, v in batch.items()}
+        weights = dp.share(weights)
         p = {n: v.detach().requires_grad_() for n, v in state.params.items()}
-        loss, (err, q_sel) = loss_fn(p, state.target_params, batch, weights,
-                                     k_nlearn)
-        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        with dp.forward_points() as points:
+            loss, (err, q_sel) = loss_fn(p, state.target_params, batch,
+                                         weights, k_nlearn)
         err = err.detach()
+        learner_m = {"loss": loss.detach(),
+                     "mean_q": dp.part_mean(q_sel.detach(), L),
+                     "td_abs_err": dp.part_mean(err.abs(), L)}
+        grads, learner_m = dp.grads(loss, p, points, learner_m)
         if cfg.prioritized:
-            update = (replay_update_priority_slots if cfg.sample_slots
-                      else replay_update_priority)
-            replay = update(replay, per_idx, err, cfg.per_alpha, cfg.per_eps)
+            replay = update_priority_block(
+                replay, slot, env, dp.gather(err, 0), cfg.per_alpha,
+                cfg.per_eps, dp.offset)
         grads = clip_by_global_norm(grads, cfg.max_grad_norm)
         updates, opt_state = adam_update(grads, state.opt_state, cfg.lr)
         params = {n: state.params[n] + updates[n] for n in state.params}
         target = state.target_params
         if (learn_steps + 1) % cfg.target_update_period == 0:
             target = dict(params)
-        metrics = {"loss": loss.detach(), "mean_q": q_sel.detach().mean(),
-                   "td_abs_err": err.abs().mean()}
         return state.replace(params=params, target_params=target,
                              opt_state=opt_state, replay=replay,
-                             learn_steps=state.learn_steps + 1), metrics
+                             learn_steps=state.learn_steps + 1), learner_m
 
     def _zeros():
         return {n: torch.zeros((), device=device) for n in _LEARNER_KEYS}
@@ -481,7 +509,8 @@ def make_train(cfg: DQNConfig, device="cuda"):
             state, learner_m = learner_half(state, k_sample, k_nlearn)
         else:
             learner_m = _zeros()
-        return state, dict(sorted({**actor_m, **learner_m}.items()))
+        return state, dict(sorted({**dp.reduce_actor(actor_m),
+                                   **learner_m}.items()))
 
     def train_chunk_fn(state: DQNState, n: int):
         """``n`` actor steps, one learner update per ``cfg.learn_every`` of
@@ -507,7 +536,7 @@ def make_train(cfg: DQNConfig, device="cuda"):
             rows.append({**actor_m, **learner_m})
         metrics = {m: torch.stack([r[m] for r in rows]).sum(dim=0)
                    / (n // le if m in _LEARNER_KEYS else n) for m in rows[0]}
-        return state, dict(sorted(metrics.items()))
+        return state, dict(sorted(dp.reduce_actor(metrics).items()))
 
     train_chunk_fn.actor_half = actor_half
     train_chunk_fn.learner_half = learner_half

@@ -33,6 +33,13 @@ member in index order, and the update folds lr into the reciprocal and fuses
 the decay's product into the sum. A fresh init draws
 from a ``torch.Generator`` seeded by the init key, so theta0 differs from
 the JAX package's for the same seed.
+
+Data parallelism (``make_es(cfg, mesh=...)``, one process per card): the
+env batch, and with it the population, is split over the data axis; each
+rank rolls its members through its envs (its envs' share of the draws),
+the perturbations are drawn replicated, and the fitness vector is
+all-gathered, so the update runs replicated in the unsharded index order
+and theta is the unsharded run's bit for bit.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ..models.actor_critic import _FLAX_LEAVES
 from ..models.dqn import RamDQN, build_q_network
 from .ppo import _seed_of
 from .replay import _sum_f32
+from .sharding import DataParallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +205,7 @@ def _build_policy(cfg: ESConfig):
     return network, ravel, unravel, obs_shape, dim
 
 
-def make_es(cfg: ESConfig, device="cuda"):
+def make_es(cfg: ESConfig, device="cuda", mesh=None):
     """Returns (init_fn, gen_step_fn, network) on ``device`` ("cpu" or
     "cuda"; a CUDA request without a card raises).
 
@@ -207,13 +215,16 @@ def make_es(cfg: ESConfig, device="cuda"):
     ``gen_step_fn.ravel`` / ``.unravel`` carry theta to and from the
     network's state_dict; ``.member_forward(params, obs)`` is the members'
     forward: params with a leading population axis (``unravel`` of
-    [pop, dim]), obs [pop, k_env, ...] -> Q-values [pop, k_env, A]."""
+    [pop, dim]), obs [pop, k_env, ...] -> Q-values [pop, k_env, A]. With
+    ``mesh`` (a ``DeviceMesh``, data axis only) each rank plays its block
+    of the population (module docstring)."""
     device = check_device(device)
     ecfg = cfg.env
     network, ravel, unravel, obs_shape, dim = _build_policy(cfg)
     network.to(device)
     pop, k_env = cfg.pop_size, cfg.envs_per_member
-    num_envs = pop * k_env
+    dp = DataParallel(mesh, device, pop)
+    m0, n_mem = dp.offset, dp.b          # the rank's members
 
     def init_fn(key) -> ESState:
         k_net, k_state = threefry.split(_key_tensor(key, device))
@@ -233,17 +244,20 @@ def make_es(cfg: ESConfig, device="cuda"):
         k_eps, k_reset, key = threefry.split(state.key, 3)
         eps_half = threefry.normal(k_eps, (pop // 2, dim))
         eps = torch.cat([eps_half, -eps_half])                 # [pop, dim]
-        members = unravel(threefry._fma(eps, cfg.sigma, state.theta[None]))
-        obs, env_state = reset_fn(ecfg, num_envs, k_reset, device=device)
-        ret = torch.zeros(num_envs, dtype=torch.float32, device=device)
+        members = unravel(threefry._fma(eps[m0:m0 + n_mem], cfg.sigma,
+                                        state.theta[None]))
+        obs, env_state = reset_fn(ecfg, n_mem * k_env, k_reset, device=device,
+                                  env_offset=m0 * k_env)
+        ret = torch.zeros(n_mem * k_env, dtype=torch.float32, device=device)
         for _ in range(cfg.horizon):
-            q = member_forward(members, obs.reshape((pop, k_env)
+            q = member_forward(members, obs.reshape((n_mem, k_env)
                                                     + obs.shape[1:]))
             a = torch.argmax(q, dim=-1).to(torch.int32)
             obs, env_state, reward, _, _ = step_fn(ecfg, env_state,
                                                    a.reshape(-1))
             ret = ret + reward
-        fitness = _sum_f32(ret.reshape(pop, k_env)) * _f32_recip(k_env)
+        fitness = dp.gather(_sum_f32(ret.reshape(n_mem, k_env))
+                            * _f32_recip(k_env), 0)
         theta, grad = es_update(state.theta, eps, fitness, sigma=cfg.sigma,
                                 lr=cfg.lr, weight_decay=cfg.weight_decay,
                                 rank_shaping=cfg.rank_shaping)

@@ -14,6 +14,17 @@ The random draws (per-step action keys, epoch permutations) are
 ``clip_by_global_norm`` then ``adam`` written out, and the parameters are a
 dict of tensors that ``torch.func.functional_call`` applies: the state is
 explicit, as in the JAX trainer, so a checkpoint of it resumes exactly.
+
+Data parallelism (``make_ppo(cfg, mesh=...)``, one process per card): each
+rank collects on its block of the envs, drawing its envs' share of the
+action draws, and computes its GAE alone. The epoch permutation runs over
+the global ``T * B`` rows (or blocks) with the replicated key; each rank
+takes the rows of a minibatch that it owns. The advantage mean and spread
+are global (an ``all_reduce`` of the mean's parts, then one of the squared
+deviations' mean), the loss terms are parts of means over the global
+minibatch, and the gradients and loss metrics are summed by one
+``all_reduce``; the collection metrics by one more at the end. At world 1
+this is the unsharded trainer bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from ..core import threefry
 from ..core.config import EnvConfig
 from ..core.state import EnvState, _key_tensor
 from ..models.actor_critic import ActorCritic
+from .sharding import DataParallel
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -113,13 +125,16 @@ def adam_update(grads: dict, opt_state: dict, lr: float):
     return updates, {"count": count, "mu": mu, "nu": nu}
 
 
-def make_ppo(cfg: PPOConfig, device):
+def make_ppo(cfg: PPOConfig, device="cuda", mesh=None):
     """Returns (init_fn, update_fn, network) on ``device`` ("cpu" or
     "cuda"; a CUDA request without a card raises). ``init_fn(key)`` takes an
     int seed or 2 words of key data; ``update_fn(state)`` runs one full PPO
     iteration (rollout + GAE + epochs) and returns (state, metrics).
     ``update_fn.collect(state)`` and ``update_fn.learn(state, rollout)`` are
-    its two halves, for timing them apart."""
+    its two halves, for timing them apart. With ``mesh`` (a ``DeviceMesh``,
+    data axis only), the rank's share of a data-parallel trainer (module
+    docstring): its state holds its block of the envs, its metrics are
+    global."""
     device = check_device(device)
     ecfg = cfg.env
     if not ecfg.auto_reset:
@@ -127,16 +142,20 @@ def make_ppo(cfg: PPOConfig, device):
     obs_shape = spaces.observation_space(ecfg).shape
     network = ActorCritic(obs_shape, obs_type=ecfg.obs_type).to(device)
     T, B = cfg.rollout_len, cfg.num_envs
+    dp = DataParallel(mesh, device, B)
+    b = dp.b
 
     def apply(params, x):
         return functional_call(network, params, (x,))
 
     def init_fn(key) -> PPOState:
         k_env, k_net, k_state = threefry.split(_key_tensor(key, device), 3)
-        obs, env_state = reset_fn(ecfg, B, k_env, device=device)
+        obs, env_state = reset_fn(ecfg, b, k_env, device=device,
+                                  env_offset=dp.offset)
         net = ActorCritic(obs_shape, obs_type=ecfg.obs_type)
         net.reset_parameters(torch.Generator().manual_seed(_seed_of(k_net)))
-        params = {k: v.detach().to(device) for k, v in net.state_dict().items()}
+        params = dp.broadcast({k: v.detach().to(device)
+                               for k, v in net.state_dict().items()})
         zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
         opt_state = {"count": torch.zeros((), dtype=torch.int32, device=device),
                      "mu": zeros(), "nu": zeros()}
@@ -150,17 +169,18 @@ def make_ppo(cfg: PPOConfig, device):
         """T-step on-policy rollout: (env_state, obs, traj, last_value)."""
         keys = threefry.split(threefry.fold_in(state.key, state.update), T)
         env_state, obs = state.env_state, state.obs
-        rows = torch.arange(B, device=device)
+        rows = torch.arange(b, device=device)
         steps = []
         for t in range(T):
             logits, value = apply(state.params, obs)
-            action = threefry.categorical(keys[t], logits).to(torch.int32)
+            action = threefry.categorical(keys[t], logits,
+                                          dp.block).to(torch.int32)
             logp = F.log_softmax(logits, dim=-1)[rows, action]
             nobs, env_state, reward, done, info = step_fn(ecfg, env_state,
                                                           action)
             # flat uint8 observations: exact, the env's values fit the palette
             steps.append(dict(
-                obs=obs.reshape(B, -1).to(torch.uint8), action=action,
+                obs=obs.reshape(b, -1).to(torch.uint8), action=action,
                 logp=logp, value=value, reward=reward * cfg.reward_scale,
                 done=done.float(),
                 # per-step line clears (taken before auto-reset): metrics only
@@ -181,22 +201,34 @@ def make_ppo(cfg: PPOConfig, device):
         advs = torch.stack(advs)
         return advs, advs + traj["value"]
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, mb, own=None):
+        """The clipped objective on the rank's rows of a minibatch of ``mb``
+        global rows (``own``: which of them, under a mesh): every term the
+        rank's part of its minibatch mean."""
         n = batch["obs"].shape[0]
         x = batch["obs"].float().reshape((n,) + obs_shape)  # exact u8 -> f32
         logits, value = apply(params, x)
         logp_all = F.log_softmax(logits, dim=-1)
         logp = logp_all.gather(1, batch["action"].long()[:, None])[:, 0]
         ratio = torch.exp(logp - batch["logp"])
+        # normalised over the minibatch, jnp.std's two passes; under a mesh
+        # over the whole minibatch's advantages, assembled in its order
         adv = batch["adv"]
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-        pg = -torch.minimum(
+        if own is not None:
+            adv = dp.assemble({"adv": adv.new_zeros(mb).index_put((own,), adv)},
+                              own)["adv"]
+        adv = adv - adv.mean()
+        adv = adv / (torch.sqrt((adv * adv).mean()) + 1e-8)
+        if own is not None:
+            adv = adv[own]
+        part = lambda v: dp.part_mean(v, mb)
+        pg = -part(torch.minimum(
             ratio * adv,
-            torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv).mean()
-        v_loss = 0.5 * torch.square(value - batch["ret"]).mean()
-        entropy = -(torch.exp(logp_all) * logp_all).sum(dim=1).mean()
+            torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv))
+        v_loss = 0.5 * part(torch.square(value - batch["ret"]))
+        entropy = -part((torch.exp(logp_all) * logp_all).sum(dim=1))
         loss = pg + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
-        clip_frac = ((ratio - 1).abs() > cfg.clip_eps).float().mean()
+        clip_frac = part(((ratio - 1).abs() > cfg.clip_eps).float())
         return loss, {"pg_loss": pg, "v_loss": v_loss, "entropy": entropy,
                       "clip_frac": clip_frac}
 
@@ -204,11 +236,11 @@ def make_ppo(cfg: PPOConfig, device):
         """GAE and the minibatch epochs on a collected rollout."""
         env_state, obs, traj, last_value = rollout
         advs, returns = gae(traj, last_value)
-        n = T * B
-        flat = {"obs": traj["obs"].reshape(n, -1),
-                "action": traj["action"].reshape(n),
-                "logp": traj["logp"].reshape(n),
-                "adv": advs.reshape(n), "ret": returns.reshape(n)}
+        n = T * B                       # the global rows, [T, B]-major
+        flat = {"obs": traj["obs"].reshape(T * b, -1),
+                "action": traj["action"].reshape(-1),
+                "logp": traj["logp"].reshape(-1),
+                "adv": advs.reshape(-1), "ret": returns.reshape(-1)}
         mb = n // cfg.num_minibatches
         blk = cfg.shuffle_block
         ekeys = threefry.split(
@@ -217,26 +249,32 @@ def make_ppo(cfg: PPOConfig, device):
         auxs = []
         for key_e in ekeys:
             if blk > 1:
-                nb = n // blk
-                perm = threefry.permutation(key_e, nb)
-                shuf = {k: x.reshape((nb, blk) + x.shape[1:])[perm]
-                        .reshape(x.shape) for k, x in flat.items()}
+                perm = threefry.permutation(key_e, n // blk)
+                perm = (perm[:, None] * blk + torch.arange(
+                    blk, device=device)).reshape(-1)
             else:
                 perm = threefry.permutation(key_e, n)
-                shuf = {k: x[perm] for k, x in flat.items()}
             for i in range(cfg.num_minibatches):
-                batch = {k: x[i * mb:(i + 1) * mb] for k, x in shuf.items()}
+                rows, own = perm[i * mb:(i + 1) * mb], None
+                if mesh is not None:        # the rank's rows, local index
+                    t, e = rows // B, rows % B - dp.offset
+                    own = (e >= 0) & (e < b)
+                    rows = (t * b + e)[own]
+                batch = {k: x[rows] for k, x in flat.items()}
                 p = {k: v.detach().requires_grad_() for k, v in params.items()}
-                loss, aux = loss_fn(p, batch)
-                grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+                with dp.forward_points() as points:
+                    loss, aux = loss_fn(p, batch, mb, own)
+                grads, aux = dp.grads(loss, p, points,
+                                      {k: v.detach() for k, v in aux.items()})
                 grads = clip_by_global_norm(grads, cfg.max_grad_norm)
                 updates, opt_state = adam_update(grads, opt_state, cfg.lr)
                 params = {k: params[k] + updates[k] for k in params}
-                auxs.append({k: v.detach() for k, v in aux.items()})
+                auxs.append(aux)
         metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
-        metrics["mean_reward"] = traj["reward"].mean() / cfg.reward_scale
-        metrics["episodes_done"] = traj["done"].sum()
-        metrics["lines_cleared"] = traj["lines"].sum()
+        metrics.update(dp.all_reduce({
+            "mean_reward": dp.share_mean(traj["reward"]) / cfg.reward_scale,
+            "episodes_done": traj["done"].sum(),
+            "lines_cleared": traj["lines"].sum()}))
         new_state = PPOState(params=params, opt_state=opt_state,
                              env_state=env_state, obs=obs, key=state.key,
                              update=state.update + 1)

@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,7 +77,7 @@ class ReplayState:
 
 
 def replay_init(capacity: int, obs_shape: Tuple[int, ...], insert_width: int,
-                device="cpu") -> ReplayState:
+                device="cuda") -> ReplayState:
     if capacity % insert_width:
         raise ValueError(
             f"capacity {capacity} must be a multiple of the env batch "
@@ -144,10 +144,8 @@ def _gather_batch(rs: ReplayState, idx: torch.Tensor) -> dict:
 def replay_sample(rs: ReplayState, key: torch.Tensor, batch: int) -> dict:
     """Uniform sample of ``batch`` transitions from the filled region: a
     uniform valid slot and a uniform env."""
-    kb, ks = threefry.split(key)
-    s = threefry.randint(ks, (batch,), 0, torch.clamp(rs.filled_slots, min=1))
-    b = threefry.randint(kb, (batch,), 0, rs.width)
-    return _gather_batch(rs, s * rs.width + b)
+    slot, env, _ = sample_draw(rs, key, batch)
+    return gather_rows(rs, slot, env)
 
 
 def _recip_f32(c) -> float:
@@ -309,11 +307,8 @@ def replay_sample_prioritized(rs: ReplayState, key: torch.Tensor, batch: int,
     flat indices, importance weights ``(N * P(i))**-beta`` normalised by
     the buffer-wide max weight; 0 for a row of zero priority, drawn only
     through round-off at the CDF edges)."""
-    valid = (torch.arange(rs.slots, device=rs.priority.device)
-             < rs.filled_slots)[:, None]
-    grid = torch.where(valid, rs.priority, 0.0)
-    _, _, idx, w = _per_draw(grid, key, batch, rs.filled, beta)
-    return _gather_batch(rs, idx), idx, w
+    slot, env, w = sample_draw(rs, key, batch, beta, prioritized=True)
+    return gather_rows(rs, slot, env), slot * rs.width + env, w
 
 
 def _slot_rows(slot: torch.Tensor, width: int) -> torch.Tensor:
@@ -322,24 +317,10 @@ def _slot_rows(slot: torch.Tensor, width: int) -> torch.Tensor:
     return (slot.long()[:, None] * width + ar[None, :]).reshape(-1)
 
 
-def _legacy_slot_batch(rs: ReplayState, slot: torch.Tensor) -> dict:
-    """The batch of whole slot rows: nb * B transitions."""
-    return _gather_batch(rs, _slot_rows(slot, rs.width))
-
-
-def _slot_count(rs, batch: int) -> int:
-    nb, rem = divmod(batch, rs.width)
-    if rem:
-        raise ValueError(f"slot-row batch {batch} must be a multiple of the "
-                         f"ring width {rs.width}")
-    return nb
-
-
 def replay_sample_slots(rs: ReplayState, key: torch.Tensor, batch: int):
     """Uniform slot-row sample over the filled region: (batch, slots)."""
-    nb = _slot_count(rs, batch)
-    slot = threefry.randint(key, (nb,), 0, torch.clamp(rs.filled_slots, min=1))
-    return _legacy_slot_batch(rs, slot), slot
+    slot, env, _ = sample_draw(rs, key, batch, slots=True)
+    return gather_rows(rs, slot, env), slot[::rs.width]
 
 
 def _per_slot_draw(p_s: torch.Tensor, key: torch.Tensor, nb: int, n_tr,
@@ -370,12 +351,9 @@ def replay_sample_slots_prioritized(rs: ReplayState, key: torch.Tensor,
     summed priority, every transition of a drawn slot in the batch,
     importance-weighted by the slot's inclusion probability (uniform within
     the row). Returns (batch, slots, weights[nb * B])."""
-    nb = _slot_count(rs, batch)
-    valid = (torch.arange(rs.slots, device=rs.priority.device)
-             < rs.filled_slots)[:, None]
-    p_s = _sum_f32(torch.where(valid, rs.priority, 0.0))
-    slot, weights = _per_slot_draw(p_s, key, nb, rs.filled, rs.width, beta)
-    return _legacy_slot_batch(rs, slot), slot, weights
+    slot, env, w = sample_draw(rs, key, batch, beta, prioritized=True,
+                               slots=True)
+    return gather_rows(rs, slot, env), slot[::rs.width], w
 
 
 def replay_update_priority(rs, idx: torch.Tensor, td_abs, alpha: float,
@@ -451,7 +429,7 @@ class FrameRingState:
 def frame_ring_init(capacity: int, base_shape: Tuple[int, ...],
                     insert_width: int, frame_stack: int = 1, n_step: int = 1,
                     gamma: float = 0.99, stacked: bool = False,
-                    device="cpu") -> FrameRingState:
+                    device="cuda") -> FrameRingState:
     if capacity % insert_width:
         raise ValueError(
             f"capacity {capacity} must be a multiple of the env batch "
@@ -590,27 +568,6 @@ def _frame_ring_batch(rs: FrameRingState, slot: torch.Tensor,
     }
 
 
-def _frame_ring_slot_batch(rs: FrameRingState, slot: torch.Tensor) -> dict:
-    """Whole slot rows as the batch: nb * B transitions, row-major. Needs
-    the obs ring or frame_stack 1, where a slot row is the observation."""
-    if not (rs.stacked or rs.frame_stack == 1):
-        raise ValueError("slot-row sampling needs ring_stacks=True or "
-                         "frame_stack == 1 (no per-env stack clamping)")
-    S, B, k = rs.slots, rs.width, rs.frame_stack
-    ret, alive, done_any = _slot_scalar_folds(rs)
-    shape = (slot.shape[0] * B,) + rs.base_shape + (
-        (k,) if rs.stacked and k > 1 else ())
-    rows = lambda buf, s: _take(buf, _slot_rows(s, B))
-    return {
-        "obs": rows(rs.frame, slot).reshape(shape),
-        "next_obs": rows(rs.frame, (slot + rs.n_step) % S).reshape(shape),
-        "action": rows(rs.action, slot).to(torch.int32),
-        "reward": rows(ret, slot),
-        "discount": (rs.gamma ** rs.n_step) * rows(alive, slot),
-        "done": rows(done_any, slot),
-    }
-
-
 def _ages_to_slots(rs: FrameRingState, key: torch.Tensor, shape):
     """Uniform slots over the valid age window [n_step, filled - history]."""
     m = rs.n_step + threefry.randint(key, shape, 0,
@@ -621,9 +578,10 @@ def _ages_to_slots(rs: FrameRingState, key: torch.Tensor, shape):
 def frame_ring_sample_slots(rs: FrameRingState, key: torch.Tensor,
                             batch: int):
     """Uniform slot-row sample over the valid age window: ``batch`` is
-    nb * B. Returns (batch, slots)."""
-    slot = _ages_to_slots(rs, key, (_slot_count(rs, batch),))
-    return _frame_ring_slot_batch(rs, slot), slot
+    nb * B; needs the obs ring or frame_stack 1, where a slot row is the
+    observation. Returns (batch, slots)."""
+    slot, env, _ = sample_draw(rs, key, batch, slots=True)
+    return gather_rows(rs, slot, env), slot[::rs.width]
 
 
 def _frame_ring_valid_mask(rs: FrameRingState) -> torch.Tensor:
@@ -633,19 +591,14 @@ def _frame_ring_valid_mask(rs: FrameRingState) -> torch.Tensor:
     return (age >= rs.n_step) & (age < rs.n_step + rs.valid_slots)
 
 
-def _valid_grid(rs: FrameRingState) -> torch.Tensor:
-    return torch.where(_frame_ring_valid_mask(rs)[:, None], rs.priority, 0.0)
-
-
 def frame_ring_sample_slots_prioritized(rs: FrameRingState, key: torch.Tensor,
                                         batch: int, beta):
     """Slot-level PER over the valid window (see
     :func:`replay_sample_slots_prioritized`): (batch, slots,
     weights[nb * B])."""
-    nb = _slot_count(rs, batch)
-    slot, weights = _per_slot_draw(_sum_f32(_valid_grid(rs)), key, nb,
-                                   rs.valid_slots * rs.width, rs.width, beta)
-    return _frame_ring_slot_batch(rs, slot), slot, weights
+    slot, env, w = sample_draw(rs, key, batch, beta, prioritized=True,
+                               slots=True)
+    return gather_rows(rs, slot, env), slot[::rs.width], w
 
 
 def frame_ring_sample(rs: FrameRingState, key: torch.Tensor,
@@ -653,10 +606,8 @@ def frame_ring_sample(rs: FrameRingState, key: torch.Tensor,
     """Uniform sample over the valid age window and the envs. Needs
     ``rs.valid_slots > 0`` (the trainer gates on it): an under-filled ring
     gives garbage, not an error."""
-    kb, ks = threefry.split(key)
-    slot = _ages_to_slots(rs, ks, (batch,))
-    env = threefry.randint(kb, (batch,), 0, rs.width)
-    return _frame_ring_batch(rs, slot, env)
+    slot, env, _ = sample_draw(rs, key, batch)
+    return gather_rows(rs, slot, env)
 
 
 def frame_ring_sample_prioritized(rs: FrameRingState, key: torch.Tensor,
@@ -664,6 +615,88 @@ def frame_ring_sample_prioritized(rs: FrameRingState, key: torch.Tensor,
     """Priority-proportional sample with replacement over the valid window,
     the legacy ring's two-level inverse CDF on the masked grid. Returns
     (batch, flat indices, weights). Needs ``rs.valid_slots > 0``."""
-    slot, env, idx, w = _per_draw(_valid_grid(rs), key, batch,
-                                  rs.valid_slots * rs.width, beta)
-    return _frame_ring_batch(rs, slot, env), idx, w
+    slot, env, w = sample_draw(rs, key, batch, beta, prioritized=True)
+    return gather_rows(rs, slot, env), slot * rs.width + env, w
+
+
+# ---------------------------------------------------------------------------
+# The draws and the gather that every sampler above composes. Under a
+# data-parallel mesh each rank holds the env columns [offset, offset +
+# width) of the global [S, B] ring: the learner draws its batch over the
+# global ring on every rank alike, the owner of each drawn column gathers
+# its rows, and the priority write-back lands on the owner.
+# ---------------------------------------------------------------------------
+
+
+def sample_draw(rs, key: torch.Tensor, batch: int, beta=None, *,
+                prioritized: bool = False, slots: bool = False,
+                width: Optional[int] = None,
+                priority: Optional[torch.Tensor] = None):
+    """The draws of a learner batch without its gather, for every layout,
+    uniform or PER, transitions or whole slot rows, over a ring of
+    ``width`` env columns (this ring's by default) whose priority grid is
+    ``priority`` [S, width] (the global ring's under a mesh, so every rank
+    draws alike). Returns (slot, env, weights or None), one entry per batch
+    row; whole slot rows are env-major within each drawn slot."""
+    frame = isinstance(rs, FrameRingState)
+    width = rs.width if width is None else width
+    priority = rs.priority if priority is None else priority
+    if frame:
+        n_valid = rs.valid_slots * width
+        grid = lambda: torch.where(_frame_ring_valid_mask(rs)[:, None],
+                                   priority, 0.0)
+    else:
+        n_valid = rs.filled_slots * width
+        grid = lambda: torch.where(
+            (torch.arange(rs.slots, device=priority.device)
+             < rs.filled_slots)[:, None], priority, 0.0)
+    weights = None
+    if slots:
+        nb, rem = divmod(batch, width)
+        if rem:
+            raise ValueError(f"slot-row batch {batch} must be a multiple of "
+                             f"the ring width {width}")
+        if frame and not (rs.stacked or rs.frame_stack == 1):
+            raise ValueError("slot-row sampling needs ring_stacks=True or "
+                             "frame_stack == 1 (no per-env stack clamping)")
+        if prioritized:
+            slot, weights = _per_slot_draw(_sum_f32(grid()), key, nb, n_valid,
+                                           width, beta)
+        elif frame:
+            slot = _ages_to_slots(rs, key, (nb,))
+        else:
+            slot = threefry.randint(key, (nb,), 0,
+                                    torch.clamp(rs.filled_slots, min=1))
+        env = torch.arange(width, device=slot.device).repeat(nb)
+        return slot.repeat_interleave(width), env, weights
+    if prioritized:
+        slot, env, _, weights = _per_draw(grid(), key, batch, n_valid, beta)
+        return slot, env, weights
+    kb, ks = threefry.split(key)
+    if frame:
+        slot = _ages_to_slots(rs, ks, (batch,))
+    else:
+        slot = threefry.randint(ks, (batch,), 0,
+                                torch.clamp(rs.filled_slots, min=1))
+    return slot, threefry.randint(kb, (batch,), 0, width), weights
+
+
+def gather_rows(rs, slot: torch.Tensor, env: torch.Tensor) -> dict:
+    """The batch rows (slot, env) of this ring's own columns (obs, next_obs,
+    action, reward, discount, done), as its samplers build them."""
+    if isinstance(rs, FrameRingState):
+        return _frame_ring_batch(rs, slot, env)
+    return _gather_batch(rs, slot * rs.width + env)
+
+
+def update_priority_block(rs, slot: torch.Tensor, env: torch.Tensor, td_abs,
+                          alpha: float, eps: float, env_offset: int):
+    """``replay_update_priority`` on the rank that holds the env columns
+    [env_offset, env_offset + width) of a sharded ring: the global batch's
+    (slot, env) and TD errors; the owned rows are written, and the running
+    max takes every row, as the unsharded ring's does."""
+    p = _powf(td_abs.detach().abs() + eps, alpha)
+    own = (env >= env_offset) & (env < env_offset + rs.width)
+    idx = (slot.long() * rs.width + env - env_offset)[own]
+    rs.priority.view(-1).index_put_((idx,), p[own])
+    return rs.replace(max_p=torch.maximum(rs.max_p, p.max()))

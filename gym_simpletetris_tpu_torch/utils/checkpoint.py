@@ -11,7 +11,14 @@
   counters. An ``ESState``: theta, the key and the generation. Training is
   a function of that state alone, so a resumed run is bit-identical to one
   that never stopped. ``restore_checkpoint`` tells the states and the ring
-  layouts apart by what the file holds.
+  layouts apart by what the file holds. Tensors are written as contiguous
+  host copies (one per tensor object), so the file depends on the state's
+  values alone.
+- Data-parallel states (``mesh=``): ``save_checkpoint`` gathers the global
+  state from every rank's block (``train.sharding.gather_train_state``)
+  and rank 0 writes it: for the same state, byte for byte the file of the
+  unsharded run; ``restore_checkpoint`` gives each rank its block of it,
+  at any world size that divides the batch.
 - ``load_flax_params``: flax parameters (``ActorCritic`` or a Q-network)
   from an ``.npz`` whose keys are the flax paths joined by ``/`` (as
   ``artifacts/ppo_lineclear_params.npz`` holds them), as a state_dict.
@@ -26,32 +33,61 @@ import numpy as np
 import torch
 
 
-def _fields(obj) -> dict:
-    """A dataclass's fields as a dict, nested state dataclasses too (the
-    tensors are not copied)."""
-    out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        out[f.name] = _fields(v) if dataclasses.is_dataclass(v) else v
-    return out
+def _fields(obj, memo: dict):
+    """A dataclass's fields as a dict, nested state dataclasses and dicts
+    too, every tensor as a contiguous host copy (one per tensor object)."""
+    if isinstance(obj, torch.Tensor):
+        if id(obj) not in memo:
+            memo[id(obj)] = obj.detach().to(
+                "cpu", memory_format=torch.contiguous_format, copy=True)
+        return memo[id(obj)]
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _fields(getattr(obj, f.name), memo)
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: _fields(v, memo) for k, v in obj.items()}
+    return obj
 
 
-def save_checkpoint(path: str, state) -> str:
+def save_checkpoint(path: str, state, mesh=None) -> str:
     """Write ``state`` (a ``PPOState``, ``DQNState`` or ``ESState``) to the
-    file ``path``."""
+    file ``path``. With ``mesh``, every rank calls it with its block; the
+    global state is gathered and rank 0 writes it."""
     path = os.path.abspath(path)
+    if mesh is not None:
+        import torch.distributed as dist
+        from ..parallel.mesh import data_axis
+        from ..train.sharding import gather_train_state
+        state = gather_train_state(state, mesh)
+        if data_axis(mesh)[1] != 0:
+            dist.barrier(group=data_axis(mesh)[0])
+            return path
     tmp = path + ".tmp"
-    torch.save(_fields(state), tmp)
+    torch.save(_fields(state, {}), tmp)
     os.replace(tmp, path)            # a crash mid-write keeps the old file
+    if mesh is not None:
+        dist.barrier(group=data_axis(mesh)[0])
     return path
 
 
-def restore_checkpoint(path: str, device="cuda"):
+def restore_checkpoint(path: str, device="cuda", mesh=None):
     """Read a state written by ``save_checkpoint`` onto ``device``, the card
     unless ``device="cpu"`` (a CUDA request without a card raises): a file
     that holds ``theta`` is an ``ESState``, one that holds a replay ring a
     ``DQNState`` (a ring of ``frame`` rows the frame / obs ring, else the
-    legacy ring), any other a ``PPOState``."""
+    legacy ring), any other a ``PPOState``. With ``mesh``, this rank's block
+    of the saved global state."""
+    if mesh is None:
+        return _restore(path, device)
+    # the rank's block, cut on the host and then moved
+    from ..api.env import check_device
+    from ..train.sharding import map_leaves, shard_train_state
+    device = check_device(device)
+    return map_leaves(shard_train_state(_restore(path, "cpu"), mesh),
+                      lambda p, x: x.to(device))
+
+
+def _restore(path: str, device):
     from ..api.env import check_device
     d = torch.load(os.path.abspath(path), map_location=check_device(device),
                    weights_only=True)

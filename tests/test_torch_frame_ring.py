@@ -72,7 +72,8 @@ def _fill(rows, actions, rewards, dones, S, k, n, gamma, stacked, jax_too):
     """The port's ring (and the JAX one) after inserting the script."""
     T, B, W = rows.shape
     F = W // k if stacked else W
-    ts = tr.frame_ring_init(S * B, (F,), B, k, n, gamma, stacked)
+    ts = tr.frame_ring_init(S * B, (F,), B, k, n, gamma, stacked,
+                            device="cpu")
     js = jr.frame_ring_init(S * B, (F,), B, k, n, gamma, stacked) \
         if jax_too else None
     for t in range(T):
@@ -130,14 +131,15 @@ def test_ring_contents_vs_numpy(T, S, k, n, stacked):
 
 def test_ring_init_and_insert_errors():
     with pytest.raises(ValueError, match="multiple"):
-        tr.frame_ring_init(10, (3,), 4)
+        tr.frame_ring_init(10, (3,), 4, device="cpu")
     with pytest.raises(ValueError, match="cannot serve"):
-        tr.frame_ring_init(16, (3,), 4, frame_stack=2, n_step=2)
-    rs = tr.frame_ring_init(32, (3,), 4)
+        tr.frame_ring_init(16, (3,), 4, frame_stack=2, n_step=2,
+                           device="cpu")
+    rs = tr.frame_ring_init(32, (3,), 4, device="cpu")
     assert bool(rs.done.all()) and int(rs.valid_slots) == 0
     with pytest.raises(ValueError, match="width"):
         tr.frame_ring_insert_frame(rs, torch.zeros(3, 3))
-    rs = tr.frame_ring_init(64, (3,), 4, frame_stack=4)
+    rs = tr.frame_ring_init(64, (3,), 4, frame_stack=4, device="cpu")
     with pytest.raises(ValueError, match="slot-row"):
         tr.frame_ring_sample_slots(rs, _key_tensor(0, "cpu"), 8)
 

@@ -33,7 +33,12 @@ _NEW_MODULES = (
     "gym_simpletetris_tpu_torch.native, "
     "gym_simpletetris_tpu_torch.utils.metrics, "
     "gym_simpletetris_tpu_torch.utils.video, "
-    "gym_simpletetris_tpu_torch.utils.profiling\n")
+    "gym_simpletetris_tpu_torch.utils.profiling, "
+    "gym_simpletetris_tpu_torch.parallel.mesh, "
+    "gym_simpletetris_tpu_torch.parallel.collective_bench, "
+    "gym_simpletetris_tpu_torch.parallel.scaling_bench, "
+    "gym_simpletetris_tpu_torch.train.sharding, "
+    "gym_simpletetris_tpu_torch.graft_entry\n")
 
 
 def test_import_leaves_jax_out():
@@ -214,3 +219,115 @@ def test_cpu_step_never_launches():
     out = E.engine_step(cfg, s, np.full(4, 2))
     assert out.state.rows.device.type == "cpu"
     assert cuda_step.step.launches == n
+
+
+_MESH_MODULES = ("gym_simpletetris_tpu_torch.parallel.mesh",
+                 "gym_simpletetris_tpu_torch.parallel.collective_bench",
+                 "gym_simpletetris_tpu_torch.parallel.scaling_bench",
+                 "gym_simpletetris_tpu_torch.train.sharding",
+                 "gym_simpletetris_tpu_torch.graft_entry")
+
+
+def test_mesh_modules_leave_jax_out_and_add_only_torch_distributed():
+    """The data-parallel modules import no JAX, and nothing outside torch
+    and the standard library that the rest of the port does not import
+    already; a world of one (in-process store) drives the sharded env, the
+    three trainers' mesh branches, a mesh checkpoint and ``entry()``."""
+    code = (
+        "import sys, tempfile, os\n"
+        "import gym_simpletetris_tpu_torch.train.dqn, "
+        "gym_simpletetris_tpu_torch.train.ppo, "
+        "gym_simpletetris_tpu_torch.train.es, "
+        "gym_simpletetris_tpu_torch.utils.checkpoint\n"
+        "before = {m.split('.')[0] for m in sys.modules}\n"
+        f"for m in {_MESH_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "new = {m.split('.')[0] for m in sys.modules} - before\n"
+        "assert new <= set(sys.stdlib_module_names) | {'torch'}, new\n"
+        "from gym_simpletetris_tpu_torch import EnvConfig\n"
+        "from gym_simpletetris_tpu_torch.parallel import mesh as M\n"
+        "from gym_simpletetris_tpu_torch.train import dqn, ppo, es\n"
+        "from gym_simpletetris_tpu_torch.utils import checkpoint as C\n"
+        "from gym_simpletetris_tpu_torch import graft_entry\n"
+        "M.init_distributed()\n"
+        "mesh = M.make_data_mesh('cpu')\n"
+        "env = M.ShardedTetrisEnv(EnvConfig(auto_reset=True), 4, mesh)\n"
+        "obs, s = env.reset(0)\n"
+        "env.step(s, [2, 2, 2, 2])\n"
+        "i, _, c, _ = dqn.make_train(dqn.DQNConfig(num_envs=4, "
+        "buffer_capacity=32, learn_batch=4, learn_starts=8, "
+        "prioritized=True), 'cpu', mesh=mesh)\n"
+        "st, _ = c(i(0), 4)\n"
+        "d = tempfile.mkdtemp()\n"
+        "C.save_checkpoint(os.path.join(d, 'c.pt'), st, mesh=mesh)\n"
+        "C.restore_checkpoint(os.path.join(d, 'c.pt'), 'cpu', mesh=mesh)\n"
+        "i, u, _ = ppo.make_ppo(ppo.PPOConfig(num_envs=4, rollout_len=2, "
+        "num_minibatches=2), 'cpu', mesh=mesh)\n"
+        "u(i(0))\n"
+        "i, g, _ = es.make_es(es.ESConfig(pop_size=4, envs_per_member=1, "
+        "horizon=2, hidden=(8,)), 'cpu', mesh=mesh)\n"
+        "g(i(0))\n"
+        "fn, args = graft_entry.entry('cpu')\n"
+        "assert tuple(fn(*args).shape) == (8, 7)\n"
+        "M.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'gym_simpletetris_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+_FAKE_NVCC = """#!/bin/sh
+# a stand-in for nvcc: records each call, takes a while, writes its -o
+out=""
+prev=""
+for a in "$@"; do
+    [ "$prev" = "-o" ] && out="$a"
+    prev="$a"
+done
+echo "$PPID $*" >> "$(dirname "$0")/calls"
+sleep 1
+echo built > "$out"
+"""
+
+
+def test_concurrent_builds_build_once(tmp_path):
+    """Two processes that build the kernels at once into an empty build
+    directory (nvcc mocked): the sources compile once and link once, and
+    both get the same library."""
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    build_dir = tmp_path / "build"
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from gym_simpletetris_tpu_torch.ops import _build\n"
+        f"_build.BUILD_DIR = Path({str(build_dir)!r})\n"
+        "print(_build.build()['path'])\n")
+    env = dict(os.environ, CUDA_HOME=str(cuda))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    paths = {out.strip() for out, _ in outs}
+    assert len(paths) == 1
+    lib = paths.pop()
+    assert os.path.exists(lib) and os.path.dirname(lib) == str(build_dir)
+    calls = (cuda / "bin" / "calls").read_text().splitlines()
+    n_src = len(_build._sources())
+    assert len(calls) == n_src + 1, calls          # each source, one link
+    assert sum(" -c " in c for c in calls) == n_src
+    assert len({c.split()[0] for c in calls}) == 1   # one process built
+    leftovers = [p.name for p in build_dir.iterdir()
+                 if p.name not in (os.path.basename(lib), ".lock")]
+    assert not leftovers, leftovers

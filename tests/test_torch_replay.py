@@ -36,7 +36,7 @@ def _filled_pair(slots=5, width=4, shape=(3, 2), inserts=7, seed=0):
     once when inserts > slots), half with a given discount."""
     rng = np.random.RandomState(seed)
     js = jr.replay_init(slots * width, shape, width)
-    ts = tr.replay_init(slots * width, shape, width)
+    ts = tr.replay_init(slots * width, shape, width, device="cpu")
     for t in range(inserts):
         o = rng.randint(0, 200, (width,) + shape).astype(np.float32)
         n = rng.randint(0, 200, (width,) + shape).astype(np.float32)
@@ -81,7 +81,7 @@ def test_contents_match_after_wrap(inserts):
 
 
 def test_insert_errors():
-    ts = tr.replay_init(8, (2,), 4)
+    ts = tr.replay_init(8, (2,), 4, device="cpu")
     z = torch.zeros(4, 2)
     with pytest.raises(ValueError, match="width"):
         tr.replay_insert(ts, torch.zeros(3, 2), torch.zeros(3, 2),
@@ -91,7 +91,7 @@ def test_insert_errors():
         tr.replay_insert(ts, z, z, torch.zeros(4), torch.zeros(4),
                          torch.zeros(4, dtype=torch.bool))
     with pytest.raises(ValueError, match="multiple"):
-        tr.replay_init(10, (2,), 4)
+        tr.replay_init(10, (2,), 4, device="cpu")
 
 
 @pytest.mark.parametrize("inserts", [3, 9])
@@ -241,7 +241,7 @@ def test_support_matches_jnp_linspace():
     for v_min, v_max, n in ((-110.0, 110.0, 51), (-10.0, 10.0, 21),
                             (-1.0, 3.0, 7)):
         want = np.asarray(jnp.linspace(v_min, v_max, n))
-        got = dqn.support_f32(v_min, v_max, n).numpy()
+        got = dqn.support_f32(v_min, v_max, n, device="cpu").numpy()
         assert got[0] == want[0] == v_min and got[-1] == want[-1] == v_max
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=1e-6 * (v_max - v_min))

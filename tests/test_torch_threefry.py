@@ -257,3 +257,70 @@ def test_cumsum_f32_along_axis_1_matches_jnp_cumsum():
     got = _cumsum_f32(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
+
+
+# Block draws: a rank of a data-parallel mesh draws its envs' share of a
+# global draw. 1-D [B], batch-major [B, 7], batch-minor [k, B] (strided) and
+# a 3-D draw, at blocks at the start, the middle and the end.
+BLOCKS = [((40,), (0, 0, 10)), ((40,), (0, 10, 30)), ((40,), (0, 35, 40)),
+          ((24, 7), (0, 0, 6)), ((24, 7), (0, 12, 18)),
+          ((3, 32), (1, 0, 8)), ((3, 32), (1, 8, 16)), ((3, 32), (1, 24, 32)),
+          ((2, 5, 16), (2, 4, 12)), ((4, 6, 3), (1, 2, 4))]
+
+
+def _slice(a, block):
+    axis, start, stop = block
+    idx = [slice(None)] * a.ndim
+    idx[axis] = slice(start, stop)
+    return a[tuple(idx)]
+
+
+@pytest.mark.parametrize("shape,block", BLOCKS)
+def test_block_draws_are_slices_of_the_global_draw(shape, block):
+    """bits / uniform / normal / randint / gumbel of a block are bitwise the
+    same slice of the global draw, the port's and jax.random's."""
+    words = _keys(1, seed=7)[-1]
+    k, jk = _key_tensor(words, "cpu"), _jax_key(words)
+    draws = (
+        (lambda b: threefry.random_bits(k, shape, b),
+         np.asarray(jax.random.bits(jk, shape, jnp.uint32)).astype(np.int64)),
+        (lambda b: threefry.uniform(k, shape, block=b),
+         np.asarray(jax.random.uniform(jk, shape))),
+        (lambda b: threefry.normal(k, shape, block=b),
+         np.asarray(jax.random.normal(jk, shape))),
+        (lambda b: threefry.randint(k, shape, 0, 7, b),
+         np.asarray(jax.random.randint(jk, shape, 0, 7))),
+        (lambda b: threefry.gumbel(k, shape, block=b),
+         np.asarray(jax.random.gumbel(jk, shape))),
+    )
+    for draw, want in draws:
+        whole, part = draw(None).numpy(), draw(block).numpy()
+        assert part.shape == threefry.block_shape(shape, block)
+        np.testing.assert_array_equal(part, _slice(whole, block))
+        np.testing.assert_array_equal(part, _slice(want, block))
+
+
+@pytest.mark.parametrize("start,stop", [(0, 5), (5, 13), (13, 24)])
+def test_categorical_block_matches_jax(start, stop):
+    """A batch-major [B, 7] categorical: rows [start, stop) of the global
+    draw, contiguous at start * 7."""
+    words = _keys(1, seed=8)[-1]
+    logits = np.random.RandomState(start).randn(24, 7).astype(np.float32)
+    want = np.asarray(jax.random.categorical(_jax_key(words),
+                                             jnp.asarray(logits)))
+    got = threefry.categorical(_key_tensor(words, "cpu"),
+                               torch.from_numpy(logits[start:stop]),
+                               (0, start, stop))
+    np.testing.assert_array_equal(got.numpy(), want[start:stop])
+
+
+def test_spawn_draw_block_matches_the_global_draw():
+    """draw_spawn_r at an offset: the same envs' draws of the global batch."""
+    words = _keys(1, seed=9)[-1]
+    counts = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 9, (7, 32)).astype(np.int32))
+    k = _key_tensor(words, "cpu")
+    whole = threefry.draw_spawn_r(k, counts)
+    for off, b in ((0, 8), (8, 16), (24, 8)):
+        part = threefry.draw_spawn_r(k, counts[:, off:off + b], off)
+        np.testing.assert_array_equal(part.numpy(), whole[off:off + b].numpy())
