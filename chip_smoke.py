@@ -59,7 +59,22 @@ on CUDA tensors; 9c, the mesh branches of the DQN (7f), obs-ring Rainbow
 against the unsharded trainers and the plain path, and a world-1
 checkpoint against the unsharded file; 9d, ``collective_bench`` and
 ``scaling_bench`` (for information); 9e, ``graft_entry.entry()`` and
-``dryrun_multichip(1)`` over NCCL. One line per phase;
+``dryrun_multichip(1)`` over NCCL. Then tensor parallelism over the
+``model`` mesh axis (phase 10; gloo on the one card, not NCCL across
+cards): 10a, two ranks at (data, model) = (1, 2) (spawned, cuda:0 each)
+run 9c's DQN 7f (48 steps), obs-ring Rainbow 7i (32 steps) and PPO ram
+update at full width, with deterministic algorithms on, held to 9c's
+unsharded runs: env rows, actions, dones, the ring and the obs bitwise
+(a divergence passes only where the sharded forward on the same
+parameters is not bitwise on the card, or after the learner ran, and is
+printed with its first slot and the forward's largest difference), the
+learned floats and metrics of 7f and PPO within rtol 2e-4, atol 2e-6, the
+obs-ring Rainbow's printed; a 7f chunk at (1, 2) bitwise on the plain
+step; 10c, the 7f state saved at (1, 2) and restored unsharded in this
+process continues 8 steps with its integer state bitwise and its floats
+within that tolerance; 10b, ``dryrun_multichip(4)`` over gloo on the card:
+(4, 1), (2, 2) and (1, 4). Kernels A and B must launch in each 10a rank.
+One line per phase;
 then a JSON line of the
 kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1915,10 +1930,11 @@ def phase_9b(first64):
     return launches
 
 
-def _p9_trainers():
-    """(name, run(mesh) -> (state, metrics)) of 9c's trainers."""
+def _p9_dqn_configs():
+    """9c's (and 10a's) DQN configurations: 7f's legacy ring (PER, 3-step,
+    dueling, RamDQN 512 / 256, 1024 envs), 7i's obs-ring Rainbow."""
     from gym_simpletetris_tpu_torch import EnvConfig
-    from gym_simpletetris_tpu_torch.train import dqn, es, ppo
+    from gym_simpletetris_tpu_torch.train import dqn
     rainbow = dqn.DQNConfig(
         env=EnvConfig(obs_type="grayscale", auto_reset=True,
                       reward_step=True, penalise_holes=True),
@@ -1926,6 +1942,13 @@ def _p9_trainers():
         prioritized=True, distributional=True, dueling=True, noisy=True,
         learn_every=4, frame_ring=True, ring_stacks=True)
     legacy = dqn.DQNConfig(prioritized=True, n_step=3, dueling=True)
+    return legacy, rainbow
+
+
+def _p9_trainers():
+    """(name, run(mesh) -> (state, metrics)) of 9c's trainers."""
+    from gym_simpletetris_tpu_torch.train import dqn, es, ppo
+    legacy, rainbow = _p9_dqn_configs()
 
     def dqn_run(cfg, steps):
         def run(mesh):
@@ -1960,13 +1983,14 @@ def phase_9c(mesh, tmp):
                       {k: v.cpu().numpy() for k, v in r[1].items()})
     torch.use_deterministic_algorithms(True)
     try:
-        launches, secs = {}, {}
+        launches, secs, unsharded = {}, {}, {}
         for name, run in _p9_trainers():
             sharded, n, secs[name] = _kernel_and_plain(
                 f"9c {name} mesh", lambda: host(run(mesh)))
             _add(launches, n)
+            unsharded[name] = host(run(None))
             _same_tree(f"9c {name}: mesh at world 1 against unsharded",
-                       sharded, host(run(None)))
+                       sharded, unsharded[name])
         # a checkpoint at world 1, byte for byte the unsharded one's
         cfg = dqn.DQNConfig(prioritized=True, n_step=3, dueling=True)
         files, runs = [], []
@@ -1992,7 +2016,7 @@ def phase_9c(mesh, tmp):
         f"{ {k: round(v, 2) for k, v in secs.items()} }; a checkpoint saved "
         f"at world 1 is the unsharded file byte for byte and continues "
         f"identically; kernel launches {launches}")
-    return launches
+    return launches, unsharded, secs
 
 
 def phase_9de(mesh, card):
@@ -2028,7 +2052,8 @@ def phase_mesh(card, tmp):
     (9a, 9c-9e), two ranks over gloo on the one card (9b). Launch counts
     from 0 before the phase, without the plain runs and the 9c unsharded
     runs' copies counted twice; A and B must have launched in 9a-9c and C
-    in 9a. Returns the launches."""
+    in 9a. Returns the launches, and 9c's unsharded results and seconds
+    (phase 10 holds its tensor-parallel runs to them)."""
     from gym_simpletetris_tpu_torch.parallel import mesh as M
     for fn in _counters().values():
         fn.launches = 0
@@ -2041,7 +2066,8 @@ def phase_mesh(card, tmp):
             raise PhaseError("kernel raster_accumulate was not launched in 9a")
         launches = dict(n9a)
         _add(launches, phase_9b(first64))
-        _add(launches, phase_9c(mesh, tmp))
+        n9c, unsharded, secs = phase_9c(mesh, tmp)
+        _add(launches, n9c)
         for k in ("step", "raster"):
             if launches[k] <= 0:
                 raise PhaseError(f"kernel {k} was not launched in 9a-9c")
@@ -2049,6 +2075,429 @@ def phase_mesh(card, tmp):
     finally:
         M.shutdown()
     log(f"phase 9 data-parallel layer: kernel launches {launches}")
+    return launches, unsharded, secs
+
+
+# ---------------------------------------------------------------- phase 10
+
+P10_CONT = 8                # 10c: steps continued after the (1, 2) save
+P10_HALVES = 4              # actor and learner halves timed apart
+P10_TOL = dict(rtol=2e-4, atol=2e-6)    # the CPU tests' TP tolerance
+# 10a prints the learned floats' distance from the unsharded runs against
+# it (``_p10_compare``); 10c holds the continued 7f state to it.
+# the state's float fields that the learner writes
+_LEARNED = ("params.", "target_params.", "opt_state.", "replay.priority",
+            "replay.max_p")
+
+
+def _p10_split(arrays: dict):
+    """A state's arrays by path -> (the learned floats, per-slot digests of
+    the rest): a replay field ``[S, B, ...]`` one digest a slot row, any
+    other field one digest."""
+    import numpy as np
+    learned, digests = {}, {}
+    for k, a in arrays.items():
+        if k.startswith(_LEARNED):
+            learned[k] = a
+            continue
+        a = np.ascontiguousarray(a)
+        rows = a if k.startswith("replay.") and a.ndim >= 2 else a[None]
+        digests[k] = np.array([hashlib.blake2b(r.tobytes(), digest_size=16)
+                               .hexdigest() for r in rows])
+    return learned, digests
+
+
+def _p10_record(name, state, metrics, network, mesh, noise_key,
+                stream=True):
+    """A 10a rank's record of a run: the weight blocks gathered over the
+    model axis; with ``stream`` also the rest of the state as digests, the
+    metrics, and the sharded forward on the state's obs (``noise_key`` for
+    a noisy network)."""
+    import torch
+    from torch.func import functional_call
+    from gym_simpletetris_tpu_torch.parallel import mesh as M
+    from gym_simpletetris_tpu_torch.train.sharding import leaves, model_paths
+    group, _, m = M.model_axis(mesh)
+    split = model_paths(state, m)
+    arrays = {}
+    for p, x in leaves(state):
+        if p in split:
+            x = M.all_gather_cat(x, group, 0)
+        arrays[".".join(map(str, p))] = x.detach().cpu().numpy()
+    learned, digests = _p10_split(
+        arrays if stream else {k: v for k, v in arrays.items()
+                               if k.startswith(_LEARNED)})
+    rec = {f"{name}/learned/{k}": v for k, v in learned.items()}
+    if not stream:
+        return rec
+    args = (state.obs,) if noise_key is False else (state.obs, noise_key)
+    with torch.no_grad():
+        out = functional_call(network, state.params, args)
+    out = out if isinstance(out, tuple) else (out,)
+    rec.update({f"{name}/digest/{k}": v for k, v in digests.items()})
+    rec.update({f"{name}/metric/{k}": v.cpu().numpy()
+                for k, v in metrics.items()})
+    rec.update({f"{name}/probe{i}": o.cpu().numpy()
+                for i, o in enumerate(out)})
+    rec[f"{name}/obs"] = state.obs.cpu().numpy()
+    return rec
+
+
+def _p10_runs():
+    """(name, steps, steps through the first learner update or None,
+    build(mesh) -> (init_fn, run(state, n), network, noise key or False))
+    of 10a's trainers: 9c's DQN 7f (48 steps; the learner first at step 4
+    of 4096 / 1024 transitions), obs-ring Rainbow 7i (32 steps; at step 16,
+    every 4th) and PPO ram 1024 x 64 (one update)."""
+    from gym_simpletetris_tpu_torch.core.state import _key_tensor
+    from gym_simpletetris_tpu_torch.train import dqn, ppo
+    legacy, rainbow = _p9_dqn_configs()
+
+    def dqn_build(cfg):
+        def build(mesh):
+            init_fn, _, chunk_fn, net = dqn.make_train(cfg, "cuda", mesh=mesh)
+            key = _key_tensor(11, "cuda") if cfg.noisy else None
+            return init_fn, chunk_fn, net, key
+        return build
+
+    def ppo_build(mesh):
+        init_fn, update_fn, net = ppo.make_ppo(ppo.PPOConfig(), "cuda",
+                                               mesh=mesh)
+        return init_fn, lambda st, n: update_fn(st), net, False
+
+    return (("dqn 7f", P9_DQN_STEPS, 4, dqn_build(legacy)),
+            ("obs-ring rainbow 7i", P9_RING_STEPS, 16, dqn_build(rainbow)),
+            ("ppo ram 1024x64", 1, None, ppo_build))
+
+
+@contextlib.contextmanager
+def _count_model_collectives(group):
+    """Within the block, count the ``all_gather`` / ``all_reduce`` calls on
+    ``group``; yields the dict of counts."""
+    import torch.distributed as dist
+    counts = {"all_gather": 0, "all_reduce": 0}
+    saved = {k: getattr(dist, k) for k in counts}
+
+    def counting(k):
+        def call(*a, group=None, **kw):
+            counts[k] += group is not None and group == want
+            return saved[k](*a, group=group, **kw)
+        return call
+
+    want = group
+    for k in counts:
+        setattr(dist, k, counting(k))
+    try:
+        yield counts
+    finally:
+        for k in counts:
+            setattr(dist, k, saved[k])
+
+
+def _p10a_rank(rank: int, store: str, outdir: str):
+    """10a / 10c's rank at (data, model) = (1, 2) over gloo on cuda:0."""
+    import numpy as np
+    import torch
+    _import_port()
+    from torch.distributed.device_mesh import init_device_mesh
+    from gym_simpletetris_tpu_torch.parallel import mesh as M
+    from gym_simpletetris_tpu_torch.utils.checkpoint import save_checkpoint
+    M.init_distributed(f"file://{store}", 2, rank, backend="gloo")
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        for fn in _counters().values():
+            fn.launches = 0
+        rec, kept = {}, {}
+        for name, steps, first, build in _p10_runs():
+            init_fn, run, net, key = build(mesh)
+            if first:
+                st, metrics = run(init_fn(0), first)
+                rec.update(_p10_record(f"{name} first", st, metrics, net,
+                                       mesh, key, stream=False))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, metrics = run(init_fn(0), steps)
+            torch.cuda.synchronize()
+            rec[f"{name}/secs"] = np.array(time.perf_counter() - t0)
+            rec.update(_p10_record(name, st, metrics, net, mesh, key))
+            kept[name] = (st, run, net)
+        rec["launches"] = np.array([_launches()[k] for k in _counters()])
+        # 10c: the 7f state saved at (1, 2), then continued with the
+        # kernels and again on the plain step, bitwise
+        st, run, net = kept["dqn 7f"]
+        save_checkpoint(os.path.join(outdir, "dqn7f.pt"), st, mesh=mesh)
+        cont, cm = run(_clone(st), P10_CONT)
+        with _plain_path():
+            plain, pm = run(_clone(st), P10_CONT)
+        same = _same_dqn_state(cont, plain) + [
+            k for k in cm if not torch.equal(cm[k], pm[k])]
+        rec["plain_differs"] = np.array(" ".join(same))
+        rec.update(_p10_record("cont", cont, cm, net, mesh, None))
+        # the halves timed apart, and the model-axis collectives of one
+        # learner step
+        half = _clone(st)
+        actor, learner = run.actor_half, run.learner_half
+        times = {"actor": [], "learner": []}
+        for _ in range(P10_HALVES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            half, (k_s, k_n, _) = actor(half)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with _count_model_collectives(M.model_axis(mesh)[0]) as counts:
+                half, _ = learner(half, k_s, k_n)
+                torch.cuda.synchronize()
+            times["actor"].append(t1 - t0)
+            times["learner"].append(time.perf_counter() - t1)
+        rec["halves"] = np.array([np.median(times["actor"]),
+                                  np.median(times["learner"])])
+        rec["collectives"] = np.array([counts["all_gather"],
+                                       counts["all_reduce"]])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        M.shutdown()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **rec)
+
+
+def _spawn_ranks(what, n, target, args, timeout=600):
+    """``n`` processes running ``chip_smoke.<target>(rank, *args)``; fails
+    the phase unless every one exits 0."""
+    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.{target}({r}, *{args!r})")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code.format(root=ROOT, target=target, r=r,
+                                           args=tuple(args))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise PhaseError(f"{what} rank {r} exited {p.returncode}:\n"
+                             f"{lg[-3000:]}")
+
+
+def _p10_first_divergence(got: dict, want: dict):
+    """(field, slot) of the first ring slot where two digest records
+    differ (a ring slot is an actor step's row), else (field, 0) of the
+    first other field that differs; None when they agree."""
+    import numpy as np
+    first = None
+    for k in sorted(got, key=lambda k: not k.startswith("replay.")):
+        diff = np.nonzero(got[k] != want[k])[0]
+        if len(diff) and (first is None or (k.startswith("replay.")
+                                            and diff[0] < first[1])):
+            first = (k, int(diff[0]))
+    return first
+
+
+def _p10_drift(got: dict, want: dict):
+    """The largest difference of two dicts of floats, its largest share of
+    P10_TOL, and the key where that share is."""
+    import numpy as np
+    worst, share, where = 0.0, 0.0, None
+    for k, a in want.items():
+        a = np.asarray(a, dtype=np.float64)
+        d = np.abs(np.asarray(got[k], dtype=np.float64) - a)
+        r = d / (P10_TOL["atol"] + P10_TOL["rtol"] * np.abs(a))
+        worst = max(worst, float(d.max(initial=0.0)))
+        if float(r.max(initial=0.0)) > share:
+            i = np.unravel_index(int(r.argmax()), r.shape) if r.ndim else ()
+            share, where = float(r.max()), (
+                f"{k}{list(i)}: {float(np.asarray(got[k])[i]):.6g} against "
+                f"{float(a[i]):.6g}")
+    return worst, share, where
+
+
+def _p10_unsharded_probe(name, rec):
+    """The unsharded network's forward on the 10a rank's gathered
+    parameters and obs: the outputs the sharded forward must equal."""
+    import torch
+    from torch.func import functional_call
+    from gym_simpletetris_tpu_torch.train import dqn, ppo
+    params = {k[len(f"{name}/learned/params."):]: torch.from_numpy(v).cuda()
+              for k, v in rec.items()
+              if k.startswith(f"{name}/learned/params.")}
+    obs = torch.from_numpy(rec[f"{name}/obs"]).cuda()
+    for run_name, _, _, build in _p10_runs():
+        if run_name == name:
+            _, _, net, key = build(None)
+    args = (obs,) if key is False else (obs, key)
+    with torch.no_grad(), _deterministic():
+        out = functional_call(net, params, args)
+    return [o.cpu().numpy() for o in (out if isinstance(out, tuple)
+                                       else (out,))]
+
+
+@contextlib.contextmanager
+def _deterministic():
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _p10_learned(rec: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in rec.items()
+            if k.startswith(prefix)}
+
+
+def _p10_compare(name, steps, first, build, rec, unsharded, secs9):
+    """10a's checks of one run against the unsharded one: (a note, a list
+    of faults). The stream (env rows, actions, dones, the ring, the obs)
+    bitwise, or a divergence explained by a sharded forward that is not
+    bitwise on the card, or by the learner once it has run (PPO collects
+    before it learns; a DQN ring slot below learn_starts / num_envs was
+    written before the first learner step). The learned floats' distance
+    from the unsharded run, after the first learner update (PPO's one) and
+    at the end, is printed against P10_TOL, not held: cuBLAS and cuDNN
+    choose their summation order by shape, so a layer's block (N / 2
+    rows) and the whole layer may sum in other orders on the card."""
+    import numpy as np
+    state, metrics = unsharded
+    learned, digests = _p10_split(state)
+    faults = []
+    no_ring = lambda d: {k: v for k, v in d.items()
+                         if not k.startswith("replay.")}
+    if first:
+        init_fn, run, _, _ = build(None)
+        with _deterministic():
+            st1, _ = run(init_fn(0), first)
+        held = _p10_drift(_p10_learned(rec, f"{name} first/learned/"),
+                          no_ring(_p10_split(_np_state(st1))[0]))
+    else:
+        held = _p10_drift(_p10_learned(rec, f"{name}/learned/"),
+                          no_ring(learned))
+    got_l = _p10_learned(rec, f"{name}/learned/")
+    end = _p10_drift(got_l, no_ring(learned))
+    # the priorities apart: a double-DQN target whose argmax is a near tie
+    # flips with the parameters' last bits, and its sample's priority
+    pri = [k for k in learned if k.startswith("replay.")]
+    p_end = _p10_drift({k: got_l[k] for k in pri},
+                       {k: learned[k] for k in pri})
+    m_end = _p10_drift({k: rec[f"{name}/metric/{k}"] for k in metrics},
+                       metrics)
+    probe = _p10_unsharded_probe(name, rec)
+    fwd = max(float(np.abs(rec[f"{name}/probe{i}"] - p).max())
+              for i, p in enumerate(probe))
+    off = sum(int((rec[f"{name}/probe{i}"] != p).sum()) for i, p in
+              enumerate(probe)) / sum(p.size for p in probe)
+    div = _p10_first_divergence(_p10_learned(rec, f"{name}/digest/"),
+                                digests)
+    if div is not None:
+        cfg = _p9_dqn_configs()[name.startswith("obs")]
+        learned_from = 0 if name.startswith("ppo") else \
+            cfg.learn_starts // cfg.num_envs
+        if off == 0 and (name.startswith("ppo") or div[1] < learned_from):
+            faults.append(f"10a {name}: diverges at {div} with a bitwise "
+                          f"forward, before the learner ran")
+    stream = ("env rows, actions, dones, ring and obs bitwise" if div is None
+              else f"DIVERGES first at {div[0]} slot {div[1]} (bitwise "
+                   f"before it)")
+    fwd_note = "bitwise" if off == 0 else \
+        f"not bitwise: {100 * off:.3g}% of outputs differ, by up to {fwd:.3g}"
+    note = (f"{name}: {stream}; sharded forward on the same parameters "
+            f"{fwd_note}; parameters and Adam state after the first learner "
+            f"update {held[0]:.3g} from the unsharded run ({held[1]:.3g} of "
+            f"the CPU tolerance, at {held[2]}), at the end {end[0]:.3g} "
+            f"({end[1]:.3g}); metrics {m_end[0]:.3g} ({m_end[1]:.3g}); "
+            f"priorities {p_end[0]:.3g} ({p_end[1]:.3g}); "
+            f"{float(rec[f'{name}/secs']) / steps:.4f} s a step (9c world 1: "
+            f"{secs9 / steps:.4f})")
+    return note, faults
+
+
+def phase_tp(card, unsharded: dict, secs9: dict, tmp):
+    """Phase 10: tensor parallelism over the model axis on the one card.
+    10a / 10c: two ranks at (data, model) = (1, 2) over gloo on cuda:0 run
+    9c's DQN 7f, obs-ring Rainbow and PPO at full width, held to 9c's
+    unsharded runs, and save the 7f state, which the parent restores
+    unsharded and continues; 10b: ``dryrun_multichip(4)`` over gloo on the
+    card, (4, 1), (2, 2) and (1, 4). Returns the ranks' launches."""
+    import io
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch import graft_entry
+    from gym_simpletetris_tpu_torch.train import dqn
+    from gym_simpletetris_tpu_torch.utils.checkpoint import restore_checkpoint
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "p10")
+    os.makedirs(out)
+    _spawn_ranks("10a", 2, "_p10a_rank", (os.path.join(out, "store"), out))
+    ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+             for r in range(2)]
+    t10a = time.perf_counter() - t0
+    for k in ranks[0]:
+        if not k.endswith(("secs", "halves")) and \
+                ranks[0][k].tobytes() != ranks[1][k].tobytes():
+            raise PhaseError(f"10a: the two model ranks differ in {k}")
+    rec = ranks[0]
+    if str(rec["plain_differs"]):
+        raise PhaseError(f"10a: a 7f chunk at (1, 2) with the kernels != on "
+                         f"the plain step: {rec['plain_differs']}")
+    launches = {k: int(sum(r["launches"][i] for r in ranks))
+                for i, k in enumerate(_counters())}
+    for r in ranks:
+        for i, k in enumerate(("step", "raster")):
+            if r["launches"][i] <= 0:
+                raise PhaseError(f"10a: kernel {k} was not launched in a "
+                                 f"rank")
+    notes, faults = [], []
+    for name, steps, first, build in _p10_runs():
+        note, fault = _p10_compare(name, steps, first, build, rec,
+                                   unsharded[name], secs9[name])
+        notes.append(note)
+        faults += fault
+    log(f"phase 10a tensor parallelism at (data, model) = (1, 2), two ranks "
+        f"over gloo on cuda:0 ({card}; gloo on one card, not NCCL across "
+        f"cards), against 9c's unsharded runs: " + "; ".join(notes))
+    log(f"phase 10a seconds per 7f actor / learner half at (1, 2): "
+        f"{rec['halves'][0]:.4f} / {rec['halves'][1]:.4f} (medians of "
+        f"{P10_HALVES}); model-axis collectives a learner step: "
+        f"{int(rec['collectives'][0])} all_gather, "
+        f"{int(rec['collectives'][1])} all_reduce; kernel launches (both "
+        f"ranks) {launches}; {t10a:.1f} s")
+    if faults:
+        raise PhaseError("; ".join(faults))
+    # 10c: the (1, 2) checkpoint restored unsharded continues identically
+    with _deterministic():
+        init_fn, _, chunk_fn, _ = dqn.make_train(_p9_dqn_configs()[0], "cuda")
+        st, _ = chunk_fn(restore_checkpoint(os.path.join(out, "dqn7f.pt"),
+                                            "cuda"), P10_CONT)
+    learned, digests = _p10_split(_np_state(st))
+    got_d = {k[len("cont/digest/"):]: v for k, v in rec.items()
+             if k.startswith("cont/digest/")}
+    div = _p10_first_divergence(got_d, digests)
+    if div is not None:
+        raise PhaseError(f"10c: the restored unsharded run diverges from the "
+                         f"(1, 2) run at {div}")
+    worst, share, where = _p10_drift(
+        {k[len("cont/learned/"):]: v for k, v in rec.items()
+         if k.startswith("cont/learned/")}, learned)
+    if share > 1:
+        raise PhaseError(f"10c: learned floats {worst:.3g} from the restored "
+                         f"unsharded run, {share:.3g} of the tolerance (at "
+                         f"{where})")
+    log(f"phase 10c the 7f state saved at (1, 2) and restored unsharded: "
+        f"{P10_CONT} more steps with env rows, ring and obs bitwise, the "
+        f"learned floats within {worst:.3g} ({share:.2f} of the tolerance); "
+        f"the (1, 2) chunk bitwise on the plain step")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        graft_entry.dryrun_multichip(4, "cuda", backend="gloo")
+    log(f"phase 10b dryrun_multichip(4) over gloo on the one card: "
+        f"{' | '.join(said.getvalue().strip().splitlines())}; "
+        f"{time.perf_counter() - t1:.1f} s")
     return launches
 
 
@@ -2115,8 +2564,12 @@ def main() -> int:
         took("8a-8f")
         with tempfile.TemporaryDirectory(prefix=".mesh_smoke_",
                                          dir=ROOT) as tmp:
-            mesh_launches = phase_mesh(card, tmp)
+            mesh_launches, unsharded, secs9 = phase_mesh(card, tmp)
         took("9a-9e")
+        with tempfile.TemporaryDirectory(prefix=".tp_smoke_",
+                                         dir=ROOT) as tmp:
+            tp_launches = phase_tp(card, unsharded, secs9, tmp)
+        took("10a-10c")
         log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -2127,7 +2580,7 @@ def main() -> int:
     kernels = []
     for suffix, n, err, t, d in (
             ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
-                  + surface_launches[k] + mesh_launches[k]
+                  + surface_launches[k] + mesh_launches[k] + tp_launches[k]
                   for k, v in launches.items()},
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),

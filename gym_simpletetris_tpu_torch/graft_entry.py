@@ -5,15 +5,17 @@ multi-process dry run (the twin of the repository root's
 ``entry()`` returns the flagship model's forward (the dueling NatureDQN on
 84 x 84 grayscale observations) with example arguments on the card.
 
-``dryrun_multichip(n)`` spawns n ranks (NCCL on n cards, gloo on the CPU)
-(one process each) and runs the JAX dry run's two trainer families on its tiny
-configurations over a data mesh of n ranks: the Rainbow DQN on the obs
+``dryrun_multichip(n)`` spawns n ranks (one process each; NCCL on n
+cards, gloo on the CPU or when named) and runs the JAX dry run's two
+trainer families on its tiny configurations: the Rainbow DQN on the obs
 ring with a live PER learner (a 6-step chunk whose last step is the first
-learner update), and one PPO update (rollout, GAE, minibatched epochs).
-Every metric is held to the unsharded run on one device (rtol 1e-5, atol
-1e-6) at the (n, 1) mesh shape, but PPO's loss metrics above one rank
-(``_tolerance``). The JAX dry run's (n/2, 2) and (n/4, 4) shapes shard the
-model axis, which waits for ROADMAP item 15b.
+learner update), and one PPO update (rollout, GAE, minibatched epochs). It
+sweeps the JAX dry run's (data, model) mesh shapes, (n, 1), (n/2, 2) and
+(n/4, 4) where they divide, all in the one world of n processes; a model
+axis splits the conv trunk, the dense layers and the PPO MLP (the heads
+stay whole). Every metric at every shape is held to the unsharded run on
+one device (rtol 1e-5, atol 1e-6), but PPO's loss metrics above one rank
+(``_tolerance``).
 
     python -m gym_simpletetris_tpu_torch.graft_entry [n] [--device cpu]
 """
@@ -72,6 +74,12 @@ def _dryrun_configs(n: int):
     return dqn, ppo
 
 
+def mesh_shapes(n: int) -> list:
+    """The (data, model) shapes of an n-rank dry run: (n, 1), then (n/2, 2)
+    and (n/4, 4) where they divide (JAX's ``_mesh_shapes``)."""
+    return [(n, 1)] + [(n // m, m) for m in (2, 4) if n % m == 0]
+
+
 def _run_families(n: int, device, mesh=None) -> dict:
     """Metrics of the DQN chunk and the PPO update (prefixed), as numpy."""
     from .train.dqn import make_train
@@ -88,7 +96,9 @@ def _run_families(n: int, device, mesh=None) -> dict:
 
 # PPO's loss metrics are means over the update's 8 minibatches, 7 of them
 # after an Adam step. Above one rank the learner sums the ranks' float32
-# gradient shares in another order than one device's GEMM sums its rows,
+# gradient shares (over the data axis), or a layer's input gradient from
+# the model ranks' partial sums (over the model axis), in another order
+# than one device's GEMM sums its rows,
 # so a weight gradient whose float32 sum lies at a bf16 rounding boundary
 # can round the other way (a few weights a step), and Adam carries that
 # into the next minibatch's losses. pg_loss, a mean of terms of order 1
@@ -106,26 +116,37 @@ def _tolerance(metric: str, n: int):
     return 1e-5, 1e-6
 
 
-def _dryrun_rank(rank: int, n: int, store: str, device: str, out: str):
-    from .parallel.mesh import init_distributed, make_data_mesh, shutdown
+def _dryrun_rank(rank: int, n: int, store: str, device: str, backend: str,
+                 out: str):
+    from torch.distributed.device_mesh import init_device_mesh
+    from .parallel.mesh import init_distributed, shutdown
     torch.set_num_threads(1)
-    init_distributed(f"file://{store}", n, rank,
-                     backend="nccl" if device == "cuda" else "gloo")
+    init_distributed(f"file://{store}", n, rank, backend=backend)
+    metrics = {}
     try:
-        metrics = _run_families(n, device, make_data_mesh(device))
+        for d, m in mesh_shapes(n):
+            mesh = init_device_mesh(device, (d, m),
+                                    mesh_dim_names=("data", "model"))
+            metrics.update({f"{d}x{m}/{k}": v for k, v in
+                            _run_families(n, device, mesh).items()})
     finally:
         shutdown()
     if rank == 0:
         np.savez(out, **metrics)
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """Run both trainer families on an ``n_devices``-rank data mesh (n
-    spawned processes) and assert every metric against the unsharded run
-    on one device. Returns the sharded metrics."""
+def dryrun_multichip(n_devices: int, device="cuda",
+                     backend: str = None) -> dict:
+    """Run both trainer families at each (data, model) shape of
+    ``mesh_shapes(n_devices)`` in one world of ``n_devices`` spawned
+    processes, and assert every metric against the unsharded run on one
+    device. ``backend``: NCCL on cards (one a rank), gloo on the CPU; gloo
+    on the card runs every rank on one card. Returns the sharded metrics,
+    keyed ``"{data}x{model}/{family}.{metric}"``."""
     from .api.env import check_device
     dev = check_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() < n_devices:
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and torch.cuda.device_count() < n_devices:
         raise ValueError(f"dryrun_multichip({n_devices}) needs {n_devices} "
                          f"cards, this host has {torch.cuda.device_count()}")
     golden = _run_families(n_devices, dev)
@@ -137,7 +158,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         code = ("import sys; from gym_simpletetris_tpu_torch.graft_entry "
                 "import _dryrun_rank; _dryrun_rank(*sys.argv[1:2], "
                 f"{n_devices}, {os.path.join(tmp, 'store')!r}, "
-                f"{dev.type!r}, {out!r})")
+                f"{dev.type!r}, {backend!r}, {out!r})")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
         procs = [subprocess.Popen([sys.executable, "-c", code.replace(
@@ -156,22 +177,26 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
                                    f"exited {p.returncode}:\n{log[-4000:]}")
         with np.load(out) as z:
             host = {k: z[k] for k in z.files}
-    assert set(host) == set(golden), (set(host), set(golden))
-    for family in ("dqn", "ppo"):
-        keys = [k for k in golden if k.startswith(family + ".")]
-        bitwise = all(np.array_equal(host[k], golden[k]) for k in keys)
-        for k in keys:
-            rtol, atol = _tolerance(k, n_devices)
-            np.testing.assert_allclose(
-                host[k], golden[k], rtol=rtol, atol=atol,
-                err_msg=f"mesh ({n_devices}, 1) metric {k} != unsharded")
-        print(f"dryrun_multichip({n_devices}): {family.upper()} mesh "
-              f"({n_devices}, 1) ok: metrics match unsharded "
-              f"({'bitwise' if bitwise else 'within tolerance'})", flush=True)
-    print(f"dryrun_multichip({n_devices}): ok at the (data, model) = "
-          f"({n_devices}, 1) shape for both trainer families; the model-axis "
-          f"shapes wait for tensor parallelism (ROADMAP item 15b)",
-          flush=True)
+    shapes = mesh_shapes(n_devices)
+    assert set(host) == {f"{d}x{m}/{k}" for d, m in shapes for k in golden}, \
+        (set(host), set(golden))
+    for d, m in shapes:
+        for family in ("dqn", "ppo"):
+            keys = [k for k in golden if k.startswith(family + ".")]
+            got = {k: host[f"{d}x{m}/{k}"] for k in keys}
+            bitwise = all(np.array_equal(got[k], golden[k]) for k in keys)
+            for k in keys:
+                rtol, atol = _tolerance(k, n_devices)
+                np.testing.assert_allclose(
+                    got[k], golden[k], rtol=rtol, atol=atol,
+                    err_msg=f"mesh ({d}, {m}) metric {k} != unsharded")
+            print(f"dryrun_multichip({n_devices}): {family.upper()} mesh "
+                  f"({d}, {m}) ok: metrics match unsharded "
+                  f"({'bitwise' if bitwise else 'within tolerance'})",
+                  flush=True)
+    print(f"dryrun_multichip({n_devices}): ok at the (data, model) shapes "
+          f"{', '.join(f'({d}, {m})' for d, m in shapes)} for both trainer "
+          f"families", flush=True)
     return host
 
 

@@ -24,6 +24,19 @@ passes its float32 gradient through unrounded and is recorded, so that the
 learner can sum the shares first and round once, as the unsharded
 gradient is rounded (``train.sharding.DataParallel.grads``).
 
+Tensor parallelism over a model axis of n ranks (``shard_layers``): a
+Dense, Conv or NoisyDense layer whose output width divides by n holds its
+block of output rows (dim 0 of its weight) and the whole bias. It computes
+its block of the output, ``(x_bf16.float() @ W_r^T).to(dtype)``, all-gathers
+the blocks along the feature axis (the last, or dim 1 of an NCHW conv
+output) and adds the whole bias: every output element is the unsharded
+layer's dot product, so the forward is the unsharded one's. On the way back
+the gather gives each rank its block's gradient, and the identity on the
+layer's float32 input sums the ranks' partial input gradients over the
+model group (Megatron's "g" and "f"). That sum runs in float32, before the
+``.float()`` cast rounds it once to ``dtype``: summing the partials after
+each rank had rounded them would not be the unsharded rounding.
+
 ``params_from_flax`` carries a flax parameter tree across. Fresh parameters
 follow flax's default initialisers (LeCun-normal truncated kernels, zero
 biases), drawn from a ``torch.Generator``.
@@ -33,10 +46,11 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
@@ -123,24 +137,112 @@ def add_bias(y: torch.Tensor, b: torch.Tensor, shape=(-1,)) -> torch.Tensor:
     return _BiasAddThrough.apply(y, point, shape)
 
 
+class ModelShard(NamedTuple):
+    """A layer's place on the model axis: the axis's process group, this
+    rank's index on it and the axis's size."""
+    group: object
+    rank: int
+    n: int
+
+
+def _layout(t: torch.Tensor) -> torch.memory_format:
+    """The memory format a collective's result must keep: a conv's NCHW
+    activations are channels-last in memory (the trunk permutes NHWC
+    frames), and the next conv picks its algorithm, and with it its order
+    of summation, by that layout."""
+    if t.dim() == 4 and not t.is_contiguous() and \
+            t.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+class _ToModel(torch.autograd.Function):
+    """The identity; its backward sums the model ranks' partial gradients
+    (one ``all_reduce`` over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        layout = _layout(g)
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g.contiguous(memory_format=layout), None
+
+
+class _FromModel(torch.autograd.Function):
+    """The model ranks' output blocks concatenated along ``dim`` (one
+    ``all_gather``), in the block's memory layout; its backward takes this
+    rank's block."""
+
+    @staticmethod
+    def forward(ctx, y, shard, dim):
+        ctx.rank, ctx.dim, ctx.size = shard.rank, dim, y.shape[dim]
+        layout = _layout(y)
+        y = y.contiguous()
+        parts = [torch.empty_like(y) for _ in range(shard.n)]
+        dist.all_gather(parts, y, group=shard.group)
+        return torch.cat(parts, dim).contiguous(memory_format=layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           dtype: torch.dtype, round_sum: bool = True) -> torch.Tensor:
+           dtype: torch.dtype, round_sum: bool = True,
+           shard: Optional[ModelShard] = None) -> torch.Tensor:
     """``x @ weight.T + bias`` as jitted flax computes it in ``dtype``: the
     product of rounded operands summed in float32 and rounded once, then the
     bias added in ``dtype``; ``round_sum=False`` adds the bias in float32
-    and returns float32."""
-    y = (x.to(dtype).float() @ cast(weight, dtype).T).to(dtype)
+    and returns float32. With ``shard``, ``weight`` is this rank's block of
+    output rows and the blocks of the product are gathered (module
+    docstring)."""
+    xf = x.to(dtype).float()
+    if shard is not None:
+        xf = _ToModel.apply(xf, shard.group)
+    y = (xf @ cast(weight, dtype).T).to(dtype)
+    if shard is not None:
+        y = _FromModel.apply(y, shard, -1)
     if round_sum:
         return add_bias(y, bias)
     return y.float() + cast(bias, dtype)
 
 
-class Dense(nn.Module):
+class Layer(nn.Module):
+    """A layer that ``shard_layers`` may split over a model axis:
+    ``features`` is its whole output width, ``shard`` its ``ModelShard``
+    while it holds a block of its output rows (else None)."""
+    shard: Optional[ModelShard] = None
+
+    def __init__(self, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.features = features
+        self.dtype = dtype
+
+
+def shard_layers(network: nn.Module, shard: Optional[ModelShard]) -> int:
+    """Split every layer of ``network`` whose output width divides by the
+    model axis's size over it (module docstring), as the placements of
+    ``train.sharding`` split its weights; the rest stay whole. ``None``
+    makes every layer whole. Returns the count of split layers."""
+    count = 0
+    for m in network.modules():
+        if isinstance(m, Layer):
+            split = shard is not None and m.features % shard.n == 0
+            m.shard = shard if split else None
+            count += split
+    return count
+
+
+class Dense(Layer):
     """flax ``nn.Dense``: weight [out, in] (the flax kernel transposed)."""
 
     def __init__(self, features_in: int, features: int, dtype: torch.dtype):
-        super().__init__()
-        self.dtype = dtype
+        super().__init__(features, dtype)
         self.weight = nn.Parameter(torch.zeros(features, features_in))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -150,7 +252,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, round_sum: bool = True) -> torch.Tensor:
         """``round_sum=False`` adds the bias in float32 and returns float32."""
-        return linear(x, self.weight, self.bias, self.dtype, round_sum)
+        return linear(x, self.weight, self.bias, self.dtype, round_sum,
+                      self.shard)
 
 
 @contextlib.contextmanager
@@ -165,14 +268,13 @@ def _ieee_conv():
         conv.fp32_precision = saved
 
 
-class Conv(nn.Module):
+class Conv(Layer):
     """flax ``nn.Conv`` with VALID padding on NCHW activations: weight OIHW
     (the flax HWIO kernel permuted)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int,
                  dtype: torch.dtype):
-        super().__init__()
-        self.dtype = dtype
+        super().__init__(cout, dtype)
         self.stride = stride
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
@@ -184,11 +286,15 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x, w = x.to(dt).float(), cast(self.weight, dt)
+        if self.shard is not None:
+            x = _ToModel.apply(x, self.shard.group)
         # cuDNN convolves float32 in TF32 unless told not to; bf16-valued
         # operands are exact in TF32 and keep it
         exact = _ieee_conv() if dt == torch.float32 else contextlib.nullcontext()
         with exact:
             y = F.conv2d(x, w, stride=self.stride).to(dt)
+        if self.shard is not None:
+            y = _FromModel.apply(y, self.shard, 1)
         return add_bias(y, self.bias, (-1, 1, 1))
 
 
@@ -257,7 +363,7 @@ class ActorCritic(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for m in self.modules():
-            if isinstance(m, (Dense, Conv)):
+            if isinstance(m, Layer):
                 m.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from ..core import threefry
 from ..core.engine import NUM_ACTIONS
-from .actor_critic import Conv, Dense, linear
+from .actor_critic import Conv, Dense, Layer, linear
 
 
 def _signed_sqrt(e: torch.Tensor) -> torch.Tensor:
@@ -57,16 +57,18 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-class NoisyDense(nn.Module):
+class NoisyDense(Layer):
     """Factorised-Gaussian noisy linear layer (Fortunato et al. 2018):
     ``y = (W_mu + W_sigma * f(eps_out) f(eps_in)^T) x + b_mu + b_sigma *
     f(eps_out)``. Weights are [out, in] (the flax kernels transposed);
-    ``path`` is the module's flax path, which its noise key folds in."""
+    ``path`` is the module's flax path, which its noise key folds in. Split
+    over a model axis it holds its block of the weights' rows and draws the
+    whole ``eps_out``, of which it takes its block: its noisy weight is
+    those rows of the unsharded layer's, bit for bit."""
 
     def __init__(self, features_in: int, features: int, dtype: torch.dtype,
                  path: Tuple[str, ...], sigma0: float = 0.5):
-        super().__init__()
-        self.dtype = dtype
+        super().__init__(features, dtype)
         self.path = tuple(path)
         self.sigma0 = sigma0
         self.weight_mu = nn.Parameter(torch.zeros(features, features_in))
@@ -88,11 +90,13 @@ class NoisyDense(nn.Module):
     def noisy_weights(self, noise_key: torch.Tensor):
         """(weight, bias) under the noise drawn from ``noise_key`` (the key
         the whole network was given)."""
-        out_f, in_f = self.weight_mu.shape
+        rows, in_f = self.weight_mu.shape
         ki, ko = threefry.split(threefry.flax_rng(noise_key, *self.path, 1))
         e_in = _signed_sqrt(threefry.normal(ki, (in_f, 1)))
-        e_out = _signed_sqrt(threefry.normal(ko, (1, out_f)))
-        w = _fma_f32(self.weight_sigma, (e_in * e_out).T, self.weight_mu)
+        e_out = _signed_sqrt(threefry.normal(ko, (1, self.features)))
+        at = self.shard.rank * rows if self.shard is not None else 0
+        e_rows = e_out[:, at:at + rows]
+        w = _fma_f32(self.weight_sigma, (e_in * e_rows).T, self.weight_mu)
         b = _fma_f32(self.bias_sigma, e_out[0], self.bias_mu)
         return w, b
 
@@ -102,7 +106,7 @@ class NoisyDense(nn.Module):
             w, b = self.weight_mu, self.bias_mu
         else:
             w, b = self.noisy_weights(noise_key)
-        return linear(x, w, b, self.dtype, round_sum)
+        return linear(x, w, b, self.dtype, round_sum, self.shard)
 
 
 def _dense(noisy: bool, fin: int, fout: int, dtype, path: Tuple[str, ...]):
@@ -214,7 +218,7 @@ class _QNetwork(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for m in self.modules():
-            if isinstance(m, (Dense, Conv, NoisyDense)):
+            if isinstance(m, Layer):
                 m.reset_parameters(gen)
 
 

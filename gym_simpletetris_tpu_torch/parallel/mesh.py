@@ -14,7 +14,10 @@ rank draws exactly its envs' share of the global draw.
 
 - ``init_distributed``: the process group (NCCL on the card, gloo on the
   CPU or when named), the rank's card set;
-- ``make_data_mesh``: a 1-D ``DeviceMesh`` over the world, axis ``"data"``;
+- ``make_data_mesh``: a 1-D ``DeviceMesh`` over the world, axis ``"data"``
+  (a 2-D (``data``, ``model``) mesh comes from ``init_device_mesh``, the
+  model axis for the trainers' tensor parallelism); ``data_axis`` /
+  ``model_axis``: an axis's group, this rank's index on it and its size;
 - ``state_sharding``: the batch axis of each ``EnvState`` field, and
   ``shard_state`` / ``gather_state`` between a global state and the blocks;
 - ``ShardedTetrisEnv``: reset / step / rollout on the rank's block;
@@ -46,6 +49,7 @@ from ..core.config import EnvConfig
 from ..core.state import FIELDS, EnvState
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -107,6 +111,16 @@ def data_axis(mesh: DeviceMesh):
     """(process group, this rank's index, size) of the mesh's data axis."""
     names = mesh.mesh_dim_names or (DATA_AXIS,)
     dim = names.index(DATA_AXIS)
+    return (mesh.get_group(dim), mesh.get_local_rank(dim), mesh.size(dim))
+
+
+def model_axis(mesh: DeviceMesh, name: str = MODEL_AXIS):
+    """(process group, this rank's index, size) of the mesh's model axis
+    ``name``; (None, 0, 1) where the mesh has none."""
+    names = mesh.mesh_dim_names or ()
+    if name not in names:
+        return None, 0, 1
+    dim = names.index(name)
     return (mesh.get_group(dim), mesh.get_local_rank(dim), mesh.size(dim))
 
 

@@ -42,6 +42,19 @@ share / batch), and one ``all_reduce`` of one flat buffer sums the
 gradients and the learner metrics. The PER write-back all-gathers the TD
 errors and each rank writes its own columns. At world 1 the mesh trainer is
 the unsharded one bit for bit; above it the gradient sum's order differs.
+
+Tensor parallelism (a 2-D (``data``, ``model``) mesh): the env state, the
+obs, the n-step window and the replay ring shard over ``data`` and
+replicate over ``model`` (JAX's ``P(None, "data")``), so the model ranks at
+one data index step the same envs and hold the same ring columns. Every
+layer of the Q-network whose width divides by the model axis (the trunk's,
+not the shipped heads') holds its block of output rows
+(``models.actor_critic.shard_layers``): the actor's and the learner's
+forwards gather the blocks, the backward sums the input gradients over the
+model group, and params, target and Adam's moments hold the same blocks
+(the target sync copies blocks). The gradient norm is global (``ppo``'s
+``clip_by_global_norm``). The forward is the unsharded one's; the
+backward's float32 sums run in another order.
 """
 
 from __future__ import annotations
@@ -59,9 +72,10 @@ from ..core import threefry
 from ..core.config import EnvConfig
 from ..core.engine import NUM_ACTIONS
 from ..core.state import EnvState, _key_tensor
+from ..models.actor_critic import shard_layers
 from ..models.dqn import build_q_network
 from .ppo import _seed_of, adam_update, clip_by_global_norm
-from .sharding import DataParallel
+from .sharding import MODEL_AXIS, DataParallel
 from .replay import (FrameRingState, ReplayState, _recip_f32, _sum_f32,
                      frame_ring_init, frame_ring_insert_frame,
                      frame_ring_insert_step, frame_ring_stack_newest,
@@ -192,12 +206,14 @@ def _select(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return (x * oh).sum(dim=1)
 
 
-def make_train(cfg: DQNConfig, device="cuda", mesh=None):
+def make_train(cfg: DQNConfig, device="cuda", mesh=None,
+               model_axis: str = MODEL_AXIS):
     """Returns (init_fn, train_step_fn, train_chunk_fn, network) on
     ``device`` ("cpu" or "cuda"; a CUDA request without a card raises).
-    With ``mesh`` (a ``DeviceMesh`` over the ranks, data axis only), the
-    rank's share of a data-parallel trainer (module docstring); its state
-    holds the rank's block, its metrics are global.
+    With ``mesh`` (a ``DeviceMesh`` over the ranks with a ``data`` axis,
+    and a ``model_axis`` for tensor parallelism), the rank's share of a
+    sharded trainer (module docstring); its state holds the rank's blocks,
+    its metrics are global.
 
     init_fn(key) -> DQNState                # key: int seed or 2 key words
     train_step_fn(state) -> (state, metrics)           # one actor+learner step
@@ -211,7 +227,8 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None):
     ecfg = cfg.env
     if not ecfg.auto_reset:
         raise ValueError("DQN training requires env auto_reset=True")
-    dp = DataParallel(mesh, device, cfg.num_envs, cfg.learn_batch)
+    dp = DataParallel(mesh, device, cfg.num_envs, cfg.learn_batch,
+                      model_axis=model_axis)
     base_shape = spaces.observation_space(ecfg).shape
     k = cfg.frame_stack
     obs_shape = base_shape + (k,) if k > 1 else base_shape
@@ -220,6 +237,7 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None):
                                     dueling=cfg.dueling, num_atoms=atoms,
                                     noisy=cfg.noisy)
     network = build().to(device)
+    shard_layers(network, dp.model)
     support = support_f32(cfg.v_min, cfg.v_max, cfg.num_atoms, device)
     B, b = cfg.num_envs, dp.b          # the global env batch, the rank's
     L = cfg.learn_batch
@@ -263,8 +281,8 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None):
                                   env_offset=dp.offset)
         net = build()
         net.reset_parameters(torch.Generator().manual_seed(_seed_of(k_net)))
-        params = dp.broadcast({n: v.detach().to(device)
-                               for n, v in net.state_dict().items()})
+        params = dp.own(dp.broadcast({n: v.detach().to(device)
+                                      for n, v in net.state_dict().items()}))
         zeros = lambda: {n: torch.zeros_like(v) for n, v in params.items()}
         if cfg.frame_ring:
             # no window and no prefill: a slot matures once its n
@@ -482,7 +500,7 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None):
             replay = update_priority_block(
                 replay, slot, env, dp.gather(err, 0), cfg.per_alpha,
                 cfg.per_eps, dp.offset)
-        grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+        grads = clip_by_global_norm(grads, cfg.max_grad_norm, dp.model)
         updates, opt_state = adam_update(grads, state.opt_state, cfg.lr)
         params = {n: state.params[n] + updates[n] for n in state.params}
         target = state.target_params

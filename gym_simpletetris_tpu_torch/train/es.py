@@ -39,7 +39,10 @@ env batch, and with it the population, is split over the data axis; each
 rank rolls its members through its envs (its envs' share of the draws),
 the perturbations are drawn replicated, and the fitness vector is
 all-gathered, so the update runs replicated in the unsharded index order
-and theta is the unsharded run's bit for bit.
+and theta is the unsharded run's bit for bit. On a 2-D (``data``,
+``model``) mesh theta stays replicated, as JAX pins it: the population
+splits over ``data`` and the model ranks at one data index play the same
+members.
 """
 
 from __future__ import annotations
@@ -216,8 +219,9 @@ def make_es(cfg: ESConfig, device="cuda", mesh=None):
     network's state_dict; ``.member_forward(params, obs)`` is the members'
     forward: params with a leading population axis (``unravel`` of
     [pop, dim]), obs [pop, k_env, ...] -> Q-values [pop, k_env, A]. With
-    ``mesh`` (a ``DeviceMesh``, data axis only) each rank plays its block
-    of the population (module docstring)."""
+    ``mesh`` (a ``DeviceMesh`` with a ``data`` axis, and any other) each
+    rank plays its data index's block of the population (module
+    docstring)."""
     device = check_device(device)
     ecfg = cfg.env
     network, ravel, unravel, obs_shape, dim = _build_policy(cfg)

@@ -25,6 +25,15 @@ deviations' mean), the loss terms are parts of means over the global
 minibatch, and the gradients and loss metrics are summed by one
 ``all_reduce``; the collection metrics by one more at the end. At world 1
 this is the unsharded trainer bit for bit.
+
+Tensor parallelism (a 2-D (``data``, ``model``) mesh): the model ranks at
+one data index collect on the same envs and hold the same rows; every
+layer of the actor-critic whose width divides by the model axis holds its
+block of output rows (``models.actor_critic.shard_layers``), so each
+forward gathers and each backward sums over the model group, and the
+parameters and Adam's moments are the rank's blocks. The global gradient
+norm sums each block's squares over the model group (one ``all_reduce``)
+and counts the whole tensors once.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import functional_call
 
@@ -42,8 +52,8 @@ from ..api.env import check_device, reset_fn, step_fn
 from ..core import threefry
 from ..core.config import EnvConfig
 from ..core.state import EnvState, _key_tensor
-from ..models.actor_critic import ActorCritic
-from .sharding import DataParallel
+from ..models.actor_critic import ActorCritic, shard_layers
+from .sharding import MODEL_AXIS, DataParallel, sharded_weights
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -100,10 +110,21 @@ def _seed_of(key: torch.Tensor) -> int:
     return int(w[0]) << 32 | int(w[1])
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+def clip_by_global_norm(grads: dict, max_norm: float, model=None) -> dict:
     """optax's ``clip_by_global_norm``: ``g / g_norm * max_norm`` when the
-    global norm reaches max_norm, else g unchanged (no epsilon)."""
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    global norm reaches max_norm, else g unchanged (no epsilon). With
+    ``model`` (a ``ModelShard``) the split weights' gradients are the
+    rank's blocks: their squared sums are summed over the model group, the
+    whole tensors' counted once."""
+    sq = [torch.sum(g * g) for g in grads.values()]
+    if model is not None:
+        split = sharded_weights(grads, model.n)
+        part = torch.stack([s if k in split else torch.zeros_like(s)
+                            for k, s in zip(grads, sq)])
+        dist.all_reduce(part, group=model.group)
+        sq = [p if k in split else s
+              for k, s, p in zip(grads, sq, part.unbind())]
+    g_norm = torch.sqrt(sum(sq))
     keep = g_norm < max_norm
     return {k: torch.where(keep, g, (g / g_norm) * max_norm)
             for k, g in grads.items()}
@@ -125,24 +146,27 @@ def adam_update(grads: dict, opt_state: dict, lr: float):
     return updates, {"count": count, "mu": mu, "nu": nu}
 
 
-def make_ppo(cfg: PPOConfig, device="cuda", mesh=None):
+def make_ppo(cfg: PPOConfig, device="cuda", mesh=None,
+             model_axis: str = MODEL_AXIS):
     """Returns (init_fn, update_fn, network) on ``device`` ("cpu" or
     "cuda"; a CUDA request without a card raises). ``init_fn(key)`` takes an
     int seed or 2 words of key data; ``update_fn(state)`` runs one full PPO
     iteration (rollout + GAE + epochs) and returns (state, metrics).
     ``update_fn.collect(state)`` and ``update_fn.learn(state, rollout)`` are
-    its two halves, for timing them apart. With ``mesh`` (a ``DeviceMesh``,
-    data axis only), the rank's share of a data-parallel trainer (module
-    docstring): its state holds its block of the envs, its metrics are
+    its two halves, for timing them apart. With ``mesh`` (a ``DeviceMesh``
+    with a ``data`` axis, and a ``model_axis`` for tensor parallelism), the
+    rank's share of a sharded trainer (module docstring): its state holds
+    its block of the envs and of the split weights, its metrics are
     global."""
     device = check_device(device)
     ecfg = cfg.env
     if not ecfg.auto_reset:
         raise ValueError("PPO requires env auto_reset=True")
     obs_shape = spaces.observation_space(ecfg).shape
-    network = ActorCritic(obs_shape, obs_type=ecfg.obs_type).to(device)
     T, B = cfg.rollout_len, cfg.num_envs
-    dp = DataParallel(mesh, device, B)
+    dp = DataParallel(mesh, device, B, model_axis=model_axis)
+    network = ActorCritic(obs_shape, obs_type=ecfg.obs_type).to(device)
+    shard_layers(network, dp.model)
     b = dp.b
 
     def apply(params, x):
@@ -154,8 +178,8 @@ def make_ppo(cfg: PPOConfig, device="cuda", mesh=None):
                                   env_offset=dp.offset)
         net = ActorCritic(obs_shape, obs_type=ecfg.obs_type)
         net.reset_parameters(torch.Generator().manual_seed(_seed_of(k_net)))
-        params = dp.broadcast({k: v.detach().to(device)
-                               for k, v in net.state_dict().items()})
+        params = dp.own(dp.broadcast({k: v.detach().to(device)
+                                      for k, v in net.state_dict().items()}))
         zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
         opt_state = {"count": torch.zeros((), dtype=torch.int32, device=device),
                      "mu": zeros(), "nu": zeros()}
@@ -266,7 +290,8 @@ def make_ppo(cfg: PPOConfig, device="cuda", mesh=None):
                     loss, aux = loss_fn(p, batch, mb, own)
                 grads, aux = dp.grads(loss, p, points,
                                       {k: v.detach() for k, v in aux.items()})
-                grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+                grads = clip_by_global_norm(grads, cfg.max_grad_norm,
+                                            dp.model)
                 updates, opt_state = adam_update(grads, opt_state, cfg.lr)
                 params = {k: params[k] + updates[k] for k in params}
                 auxs.append(aux)

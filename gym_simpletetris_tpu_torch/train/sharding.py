@@ -26,12 +26,19 @@ placement per mesh axis (``torch.distributed.tensor``'s ``Shard(dim)`` /
 - everything else (keys, counters, ES's theta) replicates.
 
 The trainers (``make_train``, ``make_ppo``, ``make_es`` with ``mesh=``)
-apply the data axis only: a mesh whose ``model`` axis is larger than 1
-raises ``NotImplementedError`` (tensor parallelism is ROADMAP item 15b).
-``utils/checkpoint.py`` gathers and shards a state by these placements
-(``gather_train_state`` / ``shard_train_state``), and ``DataParallel`` is
-the trainers' data-axis plumbing: the rank's env block and learner share,
-and their collectives.
+run on a (``data``, ``model``) mesh by these placements, one process per
+card. ``DataParallel`` is their plumbing of both axes: the rank's env block
+and learner share over ``data``, and their collectives; over ``model``, the
+layers' ``ModelShard`` (``models.actor_critic.shard_layers``: a split
+layer gathers its output blocks forward and sums its input gradients
+backward, so the model-axis reductions run inside autograd) and the rank's
+blocks of the parameters. Every weight block holds the same rows in
+``params``, ``target_params`` and Adam's ``mu`` / ``nu``; ``sharded_weights``
+reads which weights are split from a parameter dict alone, whole or
+blocked, by the size of each weight's bias. ``gather_train_state`` /
+``shard_train_state`` (and ``utils/checkpoint.py`` through them) gather and
+cut a state along both axes, so a checkpoint is the same file at every
+topology.
 """
 
 from __future__ import annotations
@@ -44,11 +51,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor.placement_types import Replicate, Shard
 
-from ..models.actor_critic import cast_points
-from ..parallel.mesh import (DATA_AXIS, all_gather_cat, block, data_axis,
+from ..models.actor_critic import ModelShard, cast_points
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat, block,
+                             data_axis, model_axis as _model_axis,
                              shard_dims, state_sharding)
 
-MODEL_AXIS = "model"
 _KERNEL_LEAVES = ("weight", "weight_mu", "weight_sigma")
 
 
@@ -58,14 +65,6 @@ def mesh_axes(mesh_shape) -> dict:
         return dict(mesh_shape)
     names = mesh_shape.mesh_dim_names or (DATA_AXIS,)
     return dict(zip(names, mesh_shape.shape))
-
-
-def check_data_only(mesh) -> None:
-    """Raise unless ``mesh`` is data-parallel only (no model axis above 1)."""
-    if mesh_axes(mesh).get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "tensor parallelism over the 'model' mesh axis is not ported "
-            "(ROADMAP item 15b); the trainers shard the 'data' axis only")
 
 
 def leaves(tree, path=()):
@@ -94,17 +93,6 @@ def map_leaves(tree, fn, path=()):
     return tree
 
 
-def _param_placement(name: str, leaf: torch.Tensor, axes: dict,
-                     model_axis: Optional[str]) -> dict:
-    """The model-axis rule: a weight's output axis (dim 0 in torch) over
-    the model axis when it divides; else nothing."""
-    if (model_axis and model_axis in axes
-            and name.split(".")[-1] in _KERNEL_LEAVES and leaf.dim() >= 2
-            and leaf.shape[0] % axes[model_axis] == 0):
-        return {model_axis: Shard(0)}
-    return {}
-
-
 def _data_placements(state, env_sh: dict) -> dict:
     """{path: the data axis's placement} of every tensor of a trainer
     state, by the rules of the module docstring; ``env_sh``: the env
@@ -131,12 +119,13 @@ def train_state_sharding(cfg, mesh_shape, state,
     {axis name: size}; ``model_axis=None`` for data parallelism alone."""
     axes = mesh_axes(mesh_shape)
     data = _data_placements(state, state_sharding(cfg.env))
+    split = model_paths(state, axes[model_axis]) if model_axis in axes \
+        else set()
     out = {}
-    for path, leaf in leaves(state):
+    for path, _ in leaves(state):
         spec = {DATA_AXIS: data[path]}
-        if path[0] in ("params", "target_params", "opt_state"):
-            spec.update(_param_placement(str(path[-1]), leaf, axes,
-                                         model_axis))
+        if path in split:
+            spec[model_axis] = Shard(0)
         out[path] = tuple(spec.get(a, Replicate()) for a in axes)
     return out
 
@@ -150,47 +139,115 @@ def data_dims(state) -> dict:
     return shard_dims(_data_placements(state, env))
 
 
-def gather_train_state(state, mesh):
-    """The global trainer state from every rank's block, on every rank: each
-    data-sharded tensor all-gathered along its axis, the replicated ones
-    kept as they are (the same objects)."""
-    group, _, _ = data_axis(mesh)
-    dims = data_dims(state)
-    out = map_leaves(state, lambda p, x: x if dims[p] is None
-                     else all_gather_cat(x, group, dims[p]))
-    if hasattr(out, "env_state"):
-        out = out.replace(env_state=out.env_state.replace(env_offset=0))
+def sharded_weights(params: dict, n: int) -> set:
+    """The names in a parameter dict (or its gradients' or Adam moments')
+    of the weights split over a model axis of size ``n``: a weight (or a
+    NoisyDense's ``weight_mu`` / ``weight_sigma``) of 2 or more dims whose
+    layer's output width, the size of its whole bias, divides by n. It
+    reads a whole dict and a rank's blocks alike."""
+    if n == 1:
+        return set()
+    out = set()
+    for name, w in params.items():
+        mod, _, leaf = name.rpartition(".")
+        if leaf in _KERNEL_LEAVES and w.dim() >= 2:
+            bias = (mod + "." if mod else "") + leaf.replace("weight", "bias")
+            if params[bias].numel() % n == 0:
+                out.add(name)
     return out
 
 
-def shard_train_state(state, mesh):
-    """This rank's block of a global trainer state (a checkpoint's)."""
+def model_paths(state, n: int) -> set:
+    """The paths of a trainer state's weights split over a model axis of
+    size ``n`` (dim 0 of each): in ``params``, ``target_params`` and Adam's
+    ``mu`` / ``nu``."""
+    dicts = [(f,) for f in ("params", "target_params") if hasattr(state, f)]
+    if getattr(state, "opt_state", None) is not None:
+        dicts += [("opt_state", "mu"), ("opt_state", "nu")]
+    out = set()
+    for path in dicts:
+        d = getattr(state, path[0])
+        d = d[path[1]] if len(path) > 1 else d
+        out.update(path + (name,) for name in sharded_weights(d, n))
+    return out
+
+
+def _once(fn):
+    """``fn`` for ``map_leaves`` run once per tensor object: a tensor held
+    at two paths (the target's, the parameters' after a sync) stays one
+    tensor, as a checkpoint stores it."""
+    memo = {}
+
+    def one(p, x):
+        if id(x) not in memo:
+            memo[id(x)] = (x, fn(p, x))
+        return memo[id(x)][1]
+    return one
+
+
+def gather_train_state(state, mesh, model_axis: str = MODEL_AXIS):
+    """The global trainer state from every rank's block, on every rank: each
+    data-sharded tensor all-gathered along its axis, each weight block
+    along dim 0 over the model axis, the replicated ones kept as they are
+    (the same objects)."""
+    group, _, _ = data_axis(mesh)
+    mgroup, _, m = _model_axis(mesh, model_axis)
+    dims, split = data_dims(state), model_paths(state, m)
+
+    def whole(p, x):
+        if dims[p] is not None:
+            x = all_gather_cat(x, group, dims[p])
+        return all_gather_cat(x, mgroup, 0) if p in split else x
+
+    out = map_leaves(state, _once(whole))
+    if hasattr(out, "env_state"):
+        out = dataclasses.replace(
+            out, env_state=out.env_state.replace(env_offset=0))
+    return out
+
+
+def shard_train_state(state, mesh, model_axis: str = MODEL_AXIS):
+    """This rank's block of a global trainer state (a checkpoint's), along
+    both axes."""
     _, rank, n = data_axis(mesh)
-    dims = data_dims(state)
-    out = map_leaves(state, lambda p, x: x if dims[p] is None
-                     else block(x, dims[p], rank, n))
+    _, mrank, m = _model_axis(mesh, model_axis)
+    dims, split = data_dims(state), model_paths(state, m)
+
+    def own(p, x):
+        if dims[p] is not None:
+            x = block(x, dims[p], rank, n)
+        return block(x, 0, mrank, m) if p in split else x
+
+    out = map_leaves(state, _once(own))
     if hasattr(out, "env_state"):
         es = out.env_state
-        out = out.replace(env_state=es.replace(
+        out = dataclasses.replace(out, env_state=es.replace(
             env_offset=rank * es.batch_size))
     return out
 
 
 class DataParallel:
-    """The data-parallel plumbing of a trainer over the mesh's data axis:
-    the rank's block of ``num_envs`` and share of a ``learn_batch``, and the
-    collectives. Without a mesh every method is the unsharded trainer's
-    identity."""
+    """The plumbing of a trainer over a mesh. The data axis: the rank's
+    block of ``num_envs`` and share of a ``learn_batch``, and the
+    collectives. The model axis (``model_axis``, where the mesh has it and
+    its size is above 1): ``model``, the layers' ``ModelShard``
+    (``models.actor_critic.shard_layers`` splits a network by it), and
+    ``own``, the rank's blocks of the parameters. Without a mesh every method is the unsharded
+    trainer's identity."""
 
-    def __init__(self, mesh, device, num_envs: int, learn_batch: int = 0):
+    def __init__(self, mesh, device, num_envs: int, learn_batch: int = 0,
+                 model_axis: str = MODEL_AXIS):
         self.mesh = mesh
         self.group, self.rank, self.n = None, 0, 1
+        self.model = None
         if mesh is not None:
-            check_data_only(mesh)
             if torch.device(device).type != mesh.device_type:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device_type}")
             self.group, self.rank, self.n = data_axis(mesh)
+            group, rank, m = _model_axis(mesh, model_axis)
+            if m > 1:
+                self.model = ModelShard(group, rank, m)
         for what, v in (("num_envs", num_envs), ("learn_batch", learn_batch)):
             if v % self.n:
                 raise ValueError(f"{what} {v} must divide by the mesh's data "
@@ -200,6 +257,15 @@ class DataParallel:
         self.offset = self.rank * self.b
         # the rank's block of a per-env draw
         self.block = (0, self.offset, self.offset + self.b) if mesh else None
+
+    def own(self, params: dict) -> dict:
+        """The rank's blocks of whole parameters: each split weight's rows
+        of the rank (``sharded_weights``), every other tensor as it is."""
+        if self.model is None:
+            return params
+        split = sharded_weights(params, self.model.n)
+        return {k: block(v, 0, self.model.rank, self.model.n)
+                if k in split else v for k, v in params.items()}
 
     def broadcast(self, tensors: dict) -> dict:
         """Rank 0's tensors on every rank (one flat broadcast)."""

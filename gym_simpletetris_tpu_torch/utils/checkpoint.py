@@ -14,11 +14,13 @@
   layouts apart by what the file holds. Tensors are written as contiguous
   host copies (one per tensor object), so the file depends on the state's
   values alone.
-- Data-parallel states (``mesh=``): ``save_checkpoint`` gathers the global
-  state from every rank's block (``train.sharding.gather_train_state``)
-  and rank 0 writes it: for the same state, byte for byte the file of the
-  unsharded run; ``restore_checkpoint`` gives each rank its block of it,
-  at any world size that divides the batch.
+- Sharded states (``mesh=``, a data axis and perhaps a model axis):
+  ``save_checkpoint`` gathers the global state from every rank's blocks
+  (``train.sharding.gather_train_state``: the env blocks over ``data``, the
+  weight blocks over ``model``) and the rank at index 0 of every axis
+  writes it: for the same state, byte for byte the file of the unsharded
+  run; ``restore_checkpoint`` gives each rank its blocks of it, at any
+  mesh whose axes divide the batch and the split widths.
 - ``load_flax_params``: flax parameters (``ActorCritic`` or a Q-network)
   from an ``.npz`` whose keys are the flax paths joined by ``/`` (as
   ``artifacts/ppo_lineclear_params.npz`` holds them), as a state_dict.
@@ -55,19 +57,25 @@ def save_checkpoint(path: str, state, mesh=None) -> str:
     global state is gathered and rank 0 writes it."""
     path = os.path.abspath(path)
     if mesh is not None:
-        import torch.distributed as dist
-        from ..parallel.mesh import data_axis
         from ..train.sharding import gather_train_state
         state = gather_train_state(state, mesh)
-        if data_axis(mesh)[1] != 0:
-            dist.barrier(group=data_axis(mesh)[0])
+        if any(mesh.get_coordinate()):
+            _barrier(mesh)
             return path
     tmp = path + ".tmp"
     torch.save(_fields(state, {}), tmp)
     os.replace(tmp, path)            # a crash mid-write keeps the old file
     if mesh is not None:
-        dist.barrier(group=data_axis(mesh)[0])
+        _barrier(mesh)
     return path
+
+
+def _barrier(mesh) -> None:
+    """Every rank of the mesh has arrived: a barrier over each axis's group
+    in turn (passing the last means every rank passed the first)."""
+    import torch.distributed as dist
+    for dim in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(dim))
 
 
 def restore_checkpoint(path: str, device="cuda", mesh=None):

@@ -21,9 +21,9 @@ tests' own tiny configurations (``tests/test_sharding.py``,
   steps amplify them; ``tests/test_torch_ppo.py`` holds no bf16 PPO
   parameters to JAX), so JAX is held at the first update;
 - ES, 1 generation: theta bitwise with the port's unsharded run and within
-  1e-6 of JAX's;
-- a mesh with a model axis above 1 raises NotImplementedError (ROADMAP
-  item 15b).
+  1e-6 of JAX's.
+
+A mesh with a model axis is ``test_torch_tensor_parallel.py``'s.
 """
 
 import jax
@@ -184,9 +184,3 @@ def test_es_mesh_theta_bitwise(runs):
                                   ts.theta.numpy().view(np.int32))
     np.testing.assert_allclose(theta, np.asarray(je.theta), rtol=0,
                                atol=1e-6)
-
-
-def test_model_axis_mesh_raises(runs):
-    world, _, _ = runs
-    msg = str(_replicated(world, "model_axis_refusal"))
-    assert "15b" in msg and "model" in msg

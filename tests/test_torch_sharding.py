@@ -117,9 +117,3 @@ def test_data_dims_follow_the_data_axis():
         assert dims[path] == (pl.dim if isinstance(pl, Shard) else None)
     assert dims[("replay", "obs")] == 1 and dims[("obs",)] == 0
     assert dims[("env_state", "rows")] == 1 and dims[("key",)] is None
-
-
-def test_model_axis_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="15b"):
-        sharding.check_data_only({"data": 2, "model": 2})
-    sharding.check_data_only({"data": 4, "model": 1})

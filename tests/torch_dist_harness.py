@@ -300,11 +300,8 @@ def record(prefix, state, metrics=None, first=None) -> dict:
 
 
 def train_job(dqn_params, ppo_params, es_theta):
-    """The three trainers on the world's mesh, and the model-axis refusal."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    """The three trainers on the world's mesh."""
     from gym_simpletetris_tpu_torch.parallel.mesh import make_data_mesh
-    from gym_simpletetris_tpu_torch.train import dqn
     mesh = make_data_mesh("cpu")
     out = {}
     out.update(record("dqn", *dqn_run(mesh, dqn_params)))
@@ -312,16 +309,153 @@ def train_job(dqn_params, ppo_params, es_theta):
     out.update(record("ppo_block", *ppo_run(mesh, None, PPO_BLOCK_KW,
                                             PPO_BLOCK_UPDATES)))
     out.update(record("es", *es_run(mesh, es_theta)))
-    n = dist.get_world_size()
-    mesh2 = init_device_mesh("cpu", (n // 2, 2),
-                             mesh_dim_names=("data", "model"))
-    try:
-        dqn.make_train(dqn.DQNConfig(env=env_cfg(), **DQN_KW), "cpu",
-                       mesh=mesh2)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    out["model_axis_refusal"] = np.array(refused)
+    return out
+
+
+# ------------------------------------------------- tensor parallelism (15b)
+
+TP_DQN_KW = dict(DQN_KW, prioritized=True, dueling=True)
+TP_PLAIN_STEPS = 3     # DQN_KW's first learner step is its second step
+# the obs ring with a noisy C51 head whose widths (4, 28) divide the model
+# axis: every layer of the network is split, a NoisyDense among them
+TP_RING_KW = dict(RING_KW, distributional=True, num_atoms=4)
+_RING_FIELDS = ("obs", "next_obs", "action", "reward", "discount", "done",
+                "priority")
+
+
+def mesh_2d(data: int, model: int):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def own_params(state, sd, mesh):
+    """``with_params`` on a sharded state: the whole parameters ``sd`` cut
+    to the rank's blocks (through a gather and a shard of the state)."""
+    from gym_simpletetris_tpu_torch.train.sharding import (
+        gather_train_state, shard_train_state)
+    if mesh is None:
+        return with_params(state, sd)
+    return shard_train_state(with_params(gather_train_state(state, mesh), sd),
+                             mesh)
+
+
+def tp_dqn_run(mesh, dqn_params, kw=TP_DQN_KW, steps=DQN_STEPS):
+    """``kw`` from seed 7 and the given parameters, ``steps`` steps:
+    (state, metrics by step, the parameters after the first learner step,
+    {the env rows and the ring's fields by step}, the init state's leaf
+    shapes)."""
+    from gym_simpletetris_tpu_torch.train import dqn
+    cfg = dqn.DQNConfig(env=env_cfg(), **kw)
+    init_fn, step_fn, _, _ = dqn.make_train(cfg, "cpu", mesh=mesh)
+    s = init_fn(7)
+    shapes = {k: np.array(v.shape) for k, v in record("", s).items()}
+    s = own_params(s, load_params(dqn_params), mesh)
+    ms, first, trace = [], None, {}
+    for _ in range(steps):
+        s, m = step_fn(s)
+        ms.append(m)
+        if first is None and int(s.learn_steps) == 1:
+            first = dict(s.params)
+        # copies: the ring is written in place
+        for f in _RING_FIELDS:
+            trace.setdefault(f"replay.{f}", []).append(
+                _np(getattr(s.replay, f)).copy())
+        trace.setdefault("rows", []).append(_np(s.env_state.rows).copy())
+    return (s, {k: np.stack([_np(m[k]) for m in ms]) for k in ms[0]}, first,
+            {k: np.stack(v) for k, v in trace.items()}, shapes)
+
+
+def tp_ppo_run(mesh, ppo_params):
+    """PPO_KW from seed 9 and the given parameters, PPO_UPDATES updates:
+    (state, metrics by update, the parameters after the first, {the env
+    rows by update}, the init state's leaf shapes)."""
+    from gym_simpletetris_tpu_torch.train import ppo
+    cfg = ppo.PPOConfig(env=env_cfg(), **PPO_KW)
+    init_fn, update_fn, _ = ppo.make_ppo(cfg, "cpu", mesh=mesh)
+    s = init_fn(9)
+    shapes = {k: np.array(v.shape) for k, v in record("", s).items()}
+    s = own_params(s, load_params(ppo_params), mesh)
+    ms, first, rows = [], None, []
+    for _ in range(PPO_UPDATES):
+        s, m = update_fn(s)
+        ms.append(m)
+        first = first or dict(s.params)
+        rows.append(_np(s.env_state.rows).copy())
+    return (s, {k: np.stack([_np(m[k]) for m in ms]) for k in ms[0]}, first,
+            {"rows": np.stack(rows)}, shapes)
+
+
+def record_tp(prefix, state, metrics, first, trace, shapes) -> dict:
+    out = record(prefix, state, metrics, first)
+    out.update({f"{prefix}/trace.{k}": v for k, v in trace.items()})
+    out.update({f"{prefix}/shape{k}": v for k, v in shapes.items()})
+    return out
+
+
+def tp_job(dqn_params, plain_params, ppo_params, es_theta):
+    """The three trainers on a (data, model) = (world / 2, 2) mesh; DQN
+    also on DQN_KW to its first learner step, from ``plain_params``."""
+    import torch.distributed as dist
+    mesh = mesh_2d(dist.get_world_size() // 2, 2)
+    out = record_tp("dqn", *tp_dqn_run(mesh, dqn_params))
+    out.update(record_tp("dqn_plain", *tp_dqn_run(
+        mesh, plain_params, DQN_KW, TP_PLAIN_STEPS)))
+    out.update(record_tp("ppo", *tp_ppo_run(mesh, ppo_params)))
+    out.update(record("es", *es_run(mesh, es_theta)))
+    return out
+
+
+def noisy_weights(network, params, key_seed=5) -> dict:
+    """Each NoisyDense's (weight, bias) under the noise of one key, from
+    ``params`` (the rank's blocks under a split network)."""
+    import copy
+    from gym_simpletetris_tpu_torch.core.state import _key_tensor
+    from gym_simpletetris_tpu_torch.models.dqn import NoisyDense
+    key = _key_tensor(key_seed, "cpu")
+    out = {}
+    for name, m in network.named_modules():
+        if isinstance(m, NoisyDense):
+            layer = copy.copy(m)         # the copy's own parameters
+            layer._parameters = {leaf: params[f"{name}.{leaf}"] for leaf in (
+                "weight_mu", "weight_sigma", "bias_mu", "bias_sigma")}
+            w, b = layer.noisy_weights(key)
+            out[f"{name}.weight"], out[f"{name}.bias"] = _np(w), _np(b)
+    return out
+
+
+def tp_ring_run(mesh):
+    """The obs-ring Rainbow of TP_RING_KW from seed 2, RING_STEPS steps:
+    (state, metrics) and the NoisyDense weights of its final parameters."""
+    from gym_simpletetris_tpu_torch.train import dqn
+    cfg = dqn.DQNConfig(env=env_cfg("grayscale"), **TP_RING_KW)
+    init_fn, _, chunk_fn, network = dqn.make_train(cfg, "cpu", mesh=mesh)
+    s, m = chunk_fn(init_fn(2), RING_STEPS)
+    return (s, m), noisy_weights(network, s.params)
+
+
+def tp_ckpt_job(path, path0):
+    """At (data, model) = (1, 2): the obs-ring Rainbow and the noisy
+    weights; checkpoints saved at (1, 2) (``ckpt_run``), and the later one
+    restored at (2, 1) and continued. The continued states are recorded
+    whole (gathered)."""
+    from gym_simpletetris_tpu_torch.train import dqn
+    from gym_simpletetris_tpu_torch.train.sharding import gather_train_state
+    from gym_simpletetris_tpu_torch.utils.checkpoint import restore_checkpoint
+    mesh = mesh_2d(1, 2)
+    ring, noisy = tp_ring_run(mesh)
+    out = record("ring", *ring)
+    out.update({f"noisy/{k}": v for k, v in noisy.items()})
+    cont, restored = ckpt_run(mesh, path, path0)
+    mesh21 = mesh_2d(2, 1)
+    cfg = dqn.DQNConfig(env=env_cfg(), **CKPT_KW)
+    _, step_fn, _, _ = dqn.make_train(cfg, "cpu", mesh=mesh21)
+    restored21 = continue_run(step_fn, restore_checkpoint(path, "cpu",
+                                                          mesh=mesh21))
+    for name, (s, m), at in (("cont", cont, mesh),
+                             ("restored", restored, mesh),
+                             ("restored21", restored21, mesh21)):
+        out.update(record(name, gather_train_state(s, at), m))
     return out
 
 
@@ -337,7 +471,8 @@ def ring_ckpt_job(path, path0):
 
 
 JOBS = {"env_job": env_job, "bench_job": bench_job, "train_job": train_job,
-        "ring_ckpt_job": ring_ckpt_job}
+        "ring_ckpt_job": ring_ckpt_job, "tp_job": tp_job,
+        "tp_ckpt_job": tp_ckpt_job}
 
 
 def _worker(job, rank, n, store, outdir, kwargs):
