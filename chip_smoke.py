@@ -74,6 +74,20 @@ step; 10c, the 7f state saved at (1, 2) and restored unsharded in this
 process continues 8 steps with its integer state bitwise and its floats
 within that tolerance; 10b, ``dryrun_multichip(4)`` over gloo on the card:
 (4, 1), (2, 2) and (1, 4). Kernels A and B must launch in each 10a rank.
+Then phase 11: 11a, the sharded learner above one rank (gradients summed
+in float32 at the layers' cast points, then rounded once): two ranks at
+(data, model) = (2, 1) over gloo on the one card run 9c's four trainers
+(7f, the obs-ring Rainbow, PPO ram, ES), each rank half of every batch,
+held to 9c's unsharded runs: the gathered state bitwise up to each DQN's
+first learner update, PPO's collection and ES theta bitwise; the learned
+floats' distance (against the CPU tests' rtol 2e-4, atol 2e-6), the first
+divergence after the first update, s a step and the gradient
+``all_reduce``s a learner step are printed; 11b,
+``tools/torch_soak_fuzz.py`` in this process: 16 random configurations
+(widths to 56, heights to 64, lock delays to 8, every flag, six action
+scripts) x 256 envs x 512 steps through every instance of kernel A each
+board admits, and kernel B's images of 4 configurations at 84 px and 2 at
+512 px, all bitwise against the port's C++ oracle and its host raster.
 One line per phase;
 then a JSON line of the
 kernels, the card's name and power limit, and as the last line
@@ -1946,28 +1960,45 @@ def _p9_dqn_configs():
 
 
 def _p9_trainers():
-    """(name, run(mesh) -> (state, metrics)) of 9c's trainers."""
+    """(name, run(mesh) -> (state, metrics)) of 9c's trainers
+    (``_trainer_runs``)."""
+    def whole(steps, build):
+        def run(mesh):
+            init_fn, go = build(mesh)
+            return go(init_fn(0), steps)
+        return run
+    return tuple((name, whole(steps, build))
+                 for name, steps, _, build in _trainer_runs())
+
+
+def _trainer_runs():
+    """(name, steps, steps through the first learner update or None,
+    build(mesh) -> (init_fn, run(state, n))) of 9c's and 11a's trainers:
+    the DQN 7f (48 steps; the learner first at step 4 of 4096 / 1024
+    transitions), the obs-ring Rainbow 7i (32 steps; at step 16, every 4th),
+    PPO ram 1024 x 64 (one update) and ES at its defaults (a generation)."""
     from gym_simpletetris_tpu_torch.train import dqn, es, ppo
     legacy, rainbow = _p9_dqn_configs()
 
-    def dqn_run(cfg, steps):
-        def run(mesh):
+    def dqn_build(cfg):
+        def build(mesh):
             init_fn, _, chunk_fn, _ = dqn.make_train(cfg, "cuda", mesh=mesh)
-            return chunk_fn(init_fn(0), steps)
-        return run
+            return init_fn, chunk_fn
+        return build
 
-    def ppo_run(mesh):
+    def ppo_build(mesh):
         init_fn, update_fn, _ = ppo.make_ppo(ppo.PPOConfig(), "cuda",
                                              mesh=mesh)
-        return update_fn(init_fn(0))
+        return init_fn, lambda st, n: update_fn(st)
 
-    def es_run(mesh):
+    def es_build(mesh):
         init_fn, gen_fn, _ = es.make_es(es.ESConfig(), "cuda", mesh=mesh)
-        return gen_fn(init_fn(0))
+        return init_fn, lambda st, n: gen_fn(st)
 
-    return (("dqn 7f", dqn_run(legacy, P9_DQN_STEPS)),
-            ("obs-ring rainbow 7i", dqn_run(rainbow, P9_RING_STEPS)),
-            ("ppo ram 1024x64", ppo_run), ("es defaults", es_run))
+    return (("dqn 7f", P9_DQN_STEPS, 4, dqn_build(legacy)),
+            ("obs-ring rainbow 7i", P9_RING_STEPS, 16, dqn_build(rainbow)),
+            ("ppo ram 1024x64", 1, None, ppo_build),
+            ("es defaults", 1, None, es_build))
 
 
 def phase_9c(mesh, tmp):
@@ -2310,7 +2341,8 @@ def _p10_drift(got: dict, want: dict):
         r = d / (P10_TOL["atol"] + P10_TOL["rtol"] * np.abs(a))
         worst = max(worst, float(d.max(initial=0.0)))
         if float(r.max(initial=0.0)) > share:
-            i = np.unravel_index(int(r.argmax()), r.shape) if r.ndim else ()
+            i = tuple(map(int, np.unravel_index(int(r.argmax()), r.shape))) \
+                if r.ndim else ()
             share, where = float(r.max()), (
                 f"{k}{list(i)}: {float(np.asarray(got[k])[i]):.6g} against "
                 f"{float(a[i]):.6g}")
@@ -2501,6 +2533,227 @@ def phase_tp(card, unsharded: dict, secs9: dict, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+@contextlib.contextmanager
+def _count_grad_reduces():
+    """Within the block, count the learner's gradient sums
+    (``DataParallel.grads`` calls) and the ``all_reduce`` calls they make;
+    yields the dict of counts."""
+    import torch.distributed as dist
+    from gym_simpletetris_tpu_torch.train import sharding
+    counts = {"grads": 0, "all_reduce": 0}
+    inside = [False]
+    saved_grads, saved_reduce = sharding.DataParallel.grads, dist.all_reduce
+
+    def grads(self, *a, **kw):
+        counts["grads"] += 1
+        inside[0] = True
+        try:
+            return saved_grads(self, *a, **kw)
+        finally:
+            inside[0] = False
+
+    def all_reduce(*a, **kw):
+        counts["all_reduce"] += inside[0]
+        return saved_reduce(*a, **kw)
+
+    sharding.DataParallel.grads, dist.all_reduce = grads, all_reduce
+    try:
+        yield counts
+    finally:
+        sharding.DataParallel.grads, dist.all_reduce = saved_grads, saved_reduce
+
+
+def _p11a_rank(rank: int, store: str, outdir: str):
+    """11a's rank at (data, model) = (2, 1) over gloo on cuda:0: each
+    trainer to its first learner update and through its run, gathered to
+    the global state (every rank holds it)."""
+    import numpy as np
+    import torch
+    _import_port()
+    from torch.distributed.device_mesh import init_device_mesh
+    from gym_simpletetris_tpu_torch.parallel import mesh as M
+    from gym_simpletetris_tpu_torch.train.sharding import gather_train_state
+    M.init_distributed(f"file://{store}", 2, rank, backend="gloo")
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = init_device_mesh("cuda", (2, 1),
+                                mesh_dim_names=("data", "model"))
+        for fn in _counters().values():
+            fn.launches = 0
+        rec = {}
+        for name, steps, first, build in _trainer_runs():
+            init_fn, run = build(mesh)
+            if first:
+                st, _ = run(init_fn(0), first)
+                learned, digests = _p10_split(_np_state(
+                    gather_train_state(st, mesh)))
+                rec.update({f"{name} first/learned/{k}": v
+                            for k, v in learned.items()})
+                rec.update({f"{name} first/digest/{k}": v
+                            for k, v in digests.items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _count_grad_reduces() as counts:
+                st, metrics = run(init_fn(0), steps)
+                torch.cuda.synchronize()
+            rec[f"{name}/secs"] = np.array(time.perf_counter() - t0)
+            rec[f"{name}/grad_reduces"] = np.array([counts["grads"],
+                                                    counts["all_reduce"]])
+            learned, digests = _p10_split(_np_state(
+                gather_train_state(st, mesh)))
+            rec.update({f"{name}/learned/{k}": v for k, v in learned.items()})
+            rec.update({f"{name}/digest/{k}": v for k, v in digests.items()})
+            rec.update({f"{name}/metric/{k}": v.cpu().numpy()
+                        for k, v in metrics.items()})
+        rec["launches"] = np.array([_launches()[k] for k in _counters()])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        M.shutdown()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **rec)
+
+
+def _fmt_drift(drift) -> str:
+    """A ``_p10_drift`` reading: bitwise, or the largest difference, its
+    share of the CPU tolerance and where that share is."""
+    worst, share, where = drift
+    if worst == 0:
+        return "bitwise"
+    return f"{worst:.3g} ({share:.3g} of the CPU tolerance, at {where})"
+
+
+def phase_dp(card, unsharded: dict, secs9: dict, tmp):
+    """Phase 11a: the sharded learner above one rank (gradients summed in
+    float32 at the layers' cast points, then rounded once) on the card.
+    Two ranks at (data, model) = (2, 1) over gloo on cuda:0 run 9c's four
+    trainers, each rank half of every batch, held to 9c's unsharded runs:
+    the gathered state bitwise up to each DQN's first learner update (env
+    rows, the ring, the obs; PPO's env rows and obs after its collection;
+    ES theta after its generation). After it the learned floats'
+    distance, against the CPU tests' tolerance, and the first divergence
+    are printed, not held: gloo on one card is not a user's NCCL across
+    cards. Returns the ranks' launches."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "p11")
+    os.makedirs(out)
+    _spawn_ranks("11a", 2, "_p11a_rank", (os.path.join(out, "store"), out))
+    ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+             for r in range(2)]
+    t11a = time.perf_counter() - t0
+    for k in ranks[0]:
+        if not k.endswith(("secs", "launches")) and \
+                ranks[0][k].tobytes() != ranks[1][k].tobytes():
+            raise PhaseError(f"11a: the two data ranks' gathered {k} differ")
+    rec = ranks[0]
+    launches = {k: int(sum(r["launches"][i] for r in ranks))
+                for i, k in enumerate(_counters())}
+    for r in ranks:
+        if r["launches"][0] <= 0:
+            raise PhaseError("11a: kernel step was not launched in a rank")
+    no_ring = lambda d: {k: v for k, v in d.items()
+                         if not k.startswith("replay.")}
+    notes, faults = [], []
+    for name, steps, first, build in _trainer_runs():
+        state, metrics = unsharded[name]
+        learned, digests = _p10_split(state)
+        got_d = _p10_learned(rec, f"{name}/digest/")
+        got_l = _p10_learned(rec, f"{name}/learned/")
+        if first:
+            init_fn, run = build(None)
+            with _deterministic():
+                st1, _ = run(init_fn(0), first)
+            l1, d1 = _p10_split(_np_state(st1))
+            div1 = _p10_first_divergence(
+                _p10_learned(rec, f"{name} first/digest/"), d1)
+            if div1 is not None:
+                faults.append(f"11a {name}: differs from the unsharded run "
+                              f"at {div1} by its first learner update")
+            held = _p10_drift(_p10_learned(rec, f"{name} first/learned/"),
+                              no_ring(l1))
+            div = _p10_first_divergence(got_d, digests)
+            stream = (f"bitwise up to the first learner update (step "
+                      f"{first}); after it " + (
+                          "bitwise to the end" if div is None else
+                          f"first diverges at {div[0]} slot {div[1]}"))
+        else:
+            held = None
+            div = _p10_first_divergence(got_d, digests)
+            if div is not None:
+                faults.append(f"11a {name}: differs from the unsharded run "
+                              f"at {div}")
+            stream = ("env rows and obs of the collection bitwise"
+                      if name.startswith("ppo") else "theta bitwise")
+        end = _p10_drift(got_l, no_ring(learned))
+        m_end = _p10_drift({k: rec[f"{name}/metric/{k}"] for k in metrics},
+                           metrics)
+        dists = [end[0], end[1], m_end[0]] + ([held[0], held[1]] if held
+                                               else [])
+        if not all(math.isfinite(d) for d in dists):
+            faults.append(f"11a {name}: a non-finite distance {dists}")
+        g, ar = (int(x) for x in rec[f"{name}/grad_reduces"])
+        reduces = (f"{ar / g:g} gradient all_reduce a learner step ({g} "
+                   f"learner steps)" if g else "no learner gradient")
+        first_note = (f"after the first learner update {_fmt_drift(held)}, "
+                      if held else "")
+        notes.append(
+            f"{name}: {stream}; learned floats {first_note}at the end "
+            f"{_fmt_drift(end)}; metrics {_fmt_drift(m_end)}; "
+            f"{float(rec[f'{name}/secs']) / steps:.4f} s a "
+            f"step (9c world 1: {secs9[name] / steps:.4f}); {reduces}")
+    log(f"phase 11a sharded learner at (data, model) = (2, 1), two ranks "
+        f"over gloo on cuda:0 ({card}; gloo on one card, not NCCL across "
+        f"cards), against 9c's unsharded runs: " + "; ".join(notes) +
+        f"; kernel launches (both ranks) {launches}; {t11a:.1f} s")
+    if faults:
+        raise PhaseError("; ".join(faults))
+    return launches
+
+
+P11_SOAK = (   # 11b: (what, tools/torch_soak_fuzz.py arguments)
+    ("kernel A, every instance", ["--instances", "all", "--configs", "16",
+                                  "--batch", "256", "--steps", "512",
+                                  "--seed", "11"]),
+    ("kernel B at 84 px", ["--pixels", "--configs", "4", "--batch", "256",
+                           "--steps", "256", "--seed", "11"]),
+    ("kernel B at 512 px", ["--pixels", "--pixel-size", "512", "--configs",
+                            "2", "--batch", "32", "--steps", "64", "--seed",
+                            "11"]))
+
+
+def phase_soak(card):
+    """Phase 11b: ``tools/torch_soak_fuzz.py`` in this process: random
+    configurations (widths to 56, heights to 64, lock delays to 8, every
+    flag, six action scripts) replayed on the card bitwise against the
+    port's C++ oracle, through every instance of kernel A each board
+    admits, and kernel B's images pixel-exact to the host raster. Returns
+    its launches."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_soak_fuzz
+    for fn in _counters().values():
+        fn.launches = 0
+    notes = []
+    for what, argv in P11_SOAK:
+        res = torch_soak_fuzz.soak(torch_soak_fuzz.parse_args(argv),
+                                   out=lambda *a, **k: None)
+        inst = ", ".join(f"{k} {v['configs']} configs / {v['launches']} "
+                         f"launches" for k, v in sorted(
+                             res["instances"].items()))
+        notes.append(f"{what} ({' '.join(argv)}): {res['steps']} steps "
+                     f"bitwise across {res['configs']} configs, instances "
+                     f"{inst}; {res['pixel_steps']} images pixel-exact; "
+                     f"{res['seconds']:.1f} s")
+    launches = _launches()
+    for k in ("step", "raster"):
+        if launches[k] <= 0:
+            raise PhaseError(f"11b: kernel {k} was not launched")
+    log(f"phase 11b soak fuzz against the C++ oracle ({card}): "
+        + "; ".join(notes) + f"; kernel launches {launches}")
+    return launches
+
+
 def main() -> int:
     # deterministic cuBLAS for the DQN phases' kernel-against-plain chunk;
     # it must be set before cuBLAS starts
@@ -2570,6 +2823,12 @@ def main() -> int:
                                          dir=ROOT) as tmp:
             tp_launches = phase_tp(card, unsharded, secs9, tmp)
         took("10a-10c")
+        with tempfile.TemporaryDirectory(prefix=".dp_smoke_",
+                                         dir=ROOT) as tmp:
+            dp_launches = phase_dp(card, unsharded, secs9, tmp)
+        took("11a")
+        soak_launches = phase_soak(card)
+        took("11b")
         log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -2581,6 +2840,7 @@ def main() -> int:
     for suffix, n, err, t, d in (
             ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
                   + surface_launches[k] + mesh_launches[k] + tp_launches[k]
+                  + dp_launches[k] + soak_launches[k]
                   for k, v in launches.items()},
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),

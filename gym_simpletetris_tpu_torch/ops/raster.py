@@ -90,11 +90,15 @@ def build_raster_maps(d0: int, d1: int, size: int):
 
 
 def rasterize_host(cells: np.ndarray, d0: int, d1: int, size: int) -> np.ndarray:
-    """Pure-numpy host raster: (d0, d1) 0/1 cells -> uint8 (size, size)."""
+    """Pure-numpy host raster: (..., d0, d1) 0/1 cells -> uint8
+    (..., size, size)."""
     base, cell = build_raster_maps(d0, d1, size)
-    flat = np.append(np.asarray(cells, dtype=np.uint8).reshape(-1), np.uint8(0))
+    cells = np.asarray(cells, dtype=np.uint8)
+    lead = cells.shape[:-2]
+    flat = np.concatenate([cells.reshape(lead + (d0 * d1,)),
+                           np.zeros(lead + (1,), np.uint8)], axis=-1)
     idx = np.where(cell < 0, d0 * d1, cell)
-    return base + np.uint8(PIECE_SHADE - BACKGROUND_SHADE) * flat[idx]
+    return base + np.uint8(PIECE_SHADE - BACKGROUND_SHADE) * flat[..., idx]
 
 
 @functools.lru_cache(maxsize=64)

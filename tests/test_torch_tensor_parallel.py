@@ -186,10 +186,25 @@ def test_dqn_first_learner_step_matches_jax_mesh(runs, case):
         np.testing.assert_allclose(got, jm[k], **TOL, err_msg=k)
     _close_params(world, f"{case}/first", port[case][2], "port first step")
     if case == "dqn_plain":
-        # the dueling head's bf16 backward is not XLA's (ROADMAP Queue 3):
-        # the port's unsharded learner itself leaves the tolerance there
         _close_params(world, f"{case}/first", flax_to_state_dict(jparams),
                       "jax")
+        return
+    # the dueling head's bf16 backward, and a dense bias's gradient, round
+    # otherwise than XLA's (ROADMAP Queue 3): measured, 83 of the 158,472
+    # parameters outside the tolerance (one in the head: an advantage
+    # weight), each at most 2 lr away (a flipped gradient sign); held at
+    # that rate, every element within 2 lr of JAX's
+    outside = []
+    for k, v in flax_to_state_dict(jparams).items():
+        got = _whole(world, f"{case}/first.{k}", v.shape)
+        v = v.numpy()
+        np.testing.assert_allclose(got, v, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] + 2 * dqn.DQNConfig().lr,
+                                   err_msg=k)
+        bad = np.abs(got - v) > TOL["atol"] + TOL["rtol"] * np.abs(v)
+        outside += [k] * int(bad.sum())
+    assert len(outside) <= 83, len(outside)
+    assert sum(k.startswith("DuelingHead_0.") for k in outside) <= 1, outside
 
 
 def test_ppo_env_rows_bitwise_and_params_close(runs):
