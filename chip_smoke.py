@@ -88,7 +88,14 @@ divergence after the first update, s a step and the gradient
 scripts) x 256 envs x 512 steps through every instance of kernel A each
 board admits, and kernel B's images of 4 configurations at 84 px and 2 at
 512 px, all bitwise against the port's C++ oracle and its host raster.
-One line per phase;
+Then phase 13, ``tools/torch_soak_shim.py`` in this process: 12 random
+shim configurations (widths 4-16, heights 5-24, every flag and obs type)
+x 300 steps (75 for image observations), the gym shim on the card (kernel
+A at B = 1, kernel B for each image observation and the 160 px renders)
+and ``TetrisEngine`` on the card (its attribute surface too) each against
+the port's C++ engine and host raster, and ``NativeTetrisEnv`` against the
+shim on the CPU plain path, on the same spawn draws: obs, reward, done and
+info at every step. One line per phase;
 then a JSON line of the
 kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -100,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -1407,26 +1415,12 @@ NATIVE_STEPS = 300        # 8e
 VIDEO_STEPS = 500         # 8f, the most steps of the recorded episode
 
 
-def _fuzz_env_kwargs(rng):
-    """A random shim configuration, drawn as the JAX package's shim fuzz
-    draws it (``tests/test_shim_fuzz.random_env_kwargs``): widths 4-16,
-    heights 5-24, every flag, every observation type."""
-    kw = dict(
-        width=int(rng.randint(4, 17)),
-        height=int(rng.randint(5, 25)),
-        lock_delay=int(rng.choice([0, 0, 1, 2, 4])),
-        step_reset=bool(rng.randint(2)),
-        reward_step=bool(rng.randint(2)),
-        penalise_height=bool(rng.randint(2)),
-        penalise_height_increase=bool(rng.randint(2)),
-        advanced_clears=bool(rng.randint(2)),
-        high_scoring=bool(rng.randint(2)),
-        penalise_holes=bool(rng.randint(2)),
-        penalise_holes_increase=bool(rng.randint(2)),
-    )
-    kw["obs_type"] = str(rng.choice(["ram", "grayscale", "rgb"]))
-    kw["extend_dims"] = bool(rng.randint(2))
-    return kw
+def _tool(name: str):
+    """The module ``tools/<name>.py``."""
+    tools = os.path.join(ROOT, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
 
 
 def _same_tree(what, a, b, path="out"):
@@ -1530,6 +1524,7 @@ def phase_shim():
     over 8 random configurations (kernel A at B = 1 over the flag and
     geometry space). Returns (launches, ms per shim call by obs type)."""
     import numpy as np
+    random_env_kwargs = _tool("torch_soak_shim").random_env_kwargs
     launches, ms = {}, {}
     for i, kw in enumerate(SHIM_OBS):
         label = kw["obs_type"] + ("+extend_dims" if kw.get("extend_dims")
@@ -1550,7 +1545,7 @@ def phase_shim():
             f"call with the kernels; kernel launches {n}")
     fuzz = {}
     for case in range(FUZZ_CASES):
-        kw = _fuzz_env_kwargs(np.random.RandomState(1000 + case))
+        kw = random_env_kwargs(np.random.RandomState(1000 + case))
         (out, env), n, _ = _kernel_and_plain(
             f"8b shim fuzz {kw}", lambda: _shim_play(kw, FUZZ_STEPS, case),
             key=lambda r: r[0])
@@ -2730,8 +2725,7 @@ def phase_soak(card):
     port's C++ oracle, through every instance of kernel A each board
     admits, and kernel B's images pixel-exact to the host raster. Returns
     its launches."""
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import torch_soak_fuzz
+    torch_soak_fuzz = _tool("torch_soak_fuzz")
     for fn in _counters().values():
         fn.launches = 0
     notes = []
@@ -2751,6 +2745,37 @@ def phase_soak(card):
             raise PhaseError(f"11b: kernel {k} was not launched")
     log(f"phase 11b soak fuzz against the C++ oracle ({card}): "
         + "; ".join(notes) + f"; kernel launches {launches}")
+    return launches
+
+
+P13_SOAK = ["--configs", "12", "--steps", "300", "--seed", "18"]
+
+
+def phase_shim_soak(card):
+    """Phase 13: ``tools/torch_soak_shim.py`` in this process: the gym shim
+    and ``TetrisEngine`` on the card against the port's C++ oracle, and
+    ``NativeTetrisEnv`` against the CPU plain path, over random
+    configurations at B = 1. Returns its launches."""
+    torch_soak_shim = _tool("torch_soak_shim")
+    for fn in _counters().values():
+        fn.launches = 0
+    try:
+        res = torch_soak_shim.soak(torch_soak_shim.parse_args(P13_SOAK),
+                                   out=lambda *a, **k: None)
+    except torch_soak_shim.SoakFailure as e:
+        raise PhaseError(f"13: {e}") from e
+    launches = _launches()
+    for k in ("step", "raster"):
+        if launches[k] <= 0:
+            raise PhaseError(f"13: kernel {k} was not launched")
+    per = "; ".join(
+        f"{s} {v['configs']} configs, {v['steps']} steps, {v['episodes']} "
+        f"episodes, {v['seconds']:.1f} s" for s, v in res["surfaces"].items())
+    log(f"phase 13 shim soak against the C++ oracle ({card}; "
+        f"{' '.join(P13_SOAK)}): {res['steps']} lockstep steps bitwise "
+        f"({per}); {res['renders']} renders at 160 px pixel-exact; "
+        f"{res['steps'] / res['seconds']:.1f} steps/s; kernel launches "
+        f"{launches}; {res['seconds']:.1f} s")
     return launches
 
 
@@ -2829,6 +2854,8 @@ def main() -> int:
         took("11a")
         soak_launches = phase_soak(card)
         took("11b")
+        shim_soak_launches = phase_shim_soak(card)
+        took("13")
         log(f"seconds by phase: {secs}")
     except Exception as e:   # the run's boundary: report and fail
         import traceback
@@ -2841,6 +2868,7 @@ def main() -> int:
             ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
                   + surface_launches[k] + mesh_launches[k] + tp_launches[k]
                   + dp_launches[k] + soak_launches[k]
+                  + shim_soak_launches[k]
                   for k, v in launches.items()},
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),
