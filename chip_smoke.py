@@ -550,10 +550,15 @@ def phase_golden():
         f"{lanes} lanes through the CUDA step kernel match the reference")
 
 
-def _counters():
-    from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step
-    return {"step": cuda_step.step, "raster": cuda_raster.rasterize_rows,
-            "raster_accumulate": cuda_raster.raster_accumulate}
+# the kernel launch counters of utils/profiling.py, by the names printed here
+_COUNTERS = {"step": "kernel.step.launches",
+             "raster": "kernel.raster.launches",
+             "raster_accumulate": "kernel.raster_acc.launches"}
+
+
+def _reset_counters() -> None:
+    from gym_simpletetris_tpu_torch.utils import profiling
+    profiling.reset()
 
 
 def phase_main_path(board: dict, label: str):
@@ -565,8 +570,7 @@ def phase_main_path(board: dict, label: str):
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
     dev = torch.device("cuda")
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     envs = {}
     for o in ("ram", "grayscale", "rgb"):
         cfg = EnvConfig(obs_type=o, auto_reset=True, **board)
@@ -607,7 +611,7 @@ def phase_main_path(board: dict, label: str):
             f"{int(don.sum())} episodes ended, mean reward "
             f"{float(rew.mean()):.4f}")
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in _counters().items()}
+    launches = _launches()
     for k, n in launches.items():
         if n <= 0:
             raise PhaseError(f"kernel {k} was not launched on the main path "
@@ -740,7 +744,9 @@ ES_EVAL_STEPS = 200
 
 
 def _launches() -> dict:
-    return {k: fn.launches for k, fn in _counters().items()}
+    from gym_simpletetris_tpu_torch.utils import profiling
+    got = profiling.counters()
+    return {k: got[name] for k, name in _COUNTERS.items()}
 
 
 @contextlib.contextmanager
@@ -972,8 +978,7 @@ def phase_trainer_path():
     then the kernels at their shapes. Launch counts: from 0 before these
     phases, summed over their kernel runs without the comparison runs;
     step and raster must have launched."""
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     parts = (phase_heuristic(), phase_greedy_eval(), phase_ppo())
     launches = {k: sum(p[k] for p in parts) for k in parts[0]}
     log(f"phase 7 trainer path: kernel launches {launches}")
@@ -1203,8 +1208,7 @@ def phase_frame_rings():
     these phases, without the comparison runs. Returns the launches."""
     import torch
     from gym_simpletetris_tpu_torch.train import dqn, run_dqn
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     r = _check_dqn("7i dqn obs ring", DQN_OBS_RING)
     launches = dict(r["launches"])
     _log_dqn("7i dqn obs ring (flagship image point)", r)
@@ -1285,8 +1289,7 @@ def phase_es(tmp):
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.train import es, run_es
     from gym_simpletetris_tpu_torch.train.evaluate import make_action_fn
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     ckpt = os.path.join(tmp, "es_ram.pt")
     argv = ES_RAM + ["--ckpt", ckpt, "--device", "cuda"]
     buf = io.StringIO()
@@ -1368,8 +1371,7 @@ def phase_dqn(tmp):
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
     from gym_simpletetris_tpu_torch.train.evaluate import make_action_fn
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     ckpt = os.path.join(tmp, "dqn_ram.pt")
     launches = {}
     for label, args, path in (("7f dqn ram", DQN_RAM, ckpt),
@@ -1725,8 +1727,7 @@ def phase_surfaces():
     the plain step and raster that launches no kernel. Launch counts from 0
     before these phases, without the comparison runs; A and B must have
     launched. Returns the launches."""
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     launches, ms = phase_shim()
     _add(launches, phase_engine())
     vec, rates = phase_vector()
@@ -1862,8 +1863,7 @@ def _p9b_rank(rank: int, store: str, out: str):
         dist.broadcast(y, dist.get_global_rank(group, 0), group=group)
         coll = (x.tolist() == [3.0] * 3 and g.tolist() == [0, 0, 1, 1]
                 and y.tolist() == [0.0, 0.0])
-        for fn in _counters().values():
-            fn.launches = 0
+        _reset_counters()
         cfg = EnvConfig(obs_type="ram", auto_reset=True, reward_step=True)
         env = M.ShardedTetrisEnv(cfg, P9_B, mesh)
         rng = np.random.RandomState(9)
@@ -1880,8 +1880,8 @@ def _p9b_rank(rank: int, store: str, out: str):
                  reward=np.stack(rec["reward"]), done=np.stack(rec["done"]),
                  rows=s.rows.cpu().numpy(), coll=coll,
                  env_steps=metrics["env_steps"].cpu().numpy(),
-                 launches=np.array([_counters()["step"].launches,
-                                    _counters()["raster"].launches]))
+                 launches=np.array([_launches()["step"],
+                                    _launches()["raster"]]))
     finally:
         M.shutdown()
 
@@ -2081,8 +2081,7 @@ def phase_mesh(card, tmp):
     in 9a. Returns the launches, and 9c's unsharded results and seconds
     (phase 10 holds its tensor-parallel runs to them)."""
     from gym_simpletetris_tpu_torch.parallel import mesh as M
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     M.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
     try:
         mesh = M.make_data_mesh("cuda")
@@ -2233,8 +2232,7 @@ def _p10a_rank(rank: int, store: str, outdir: str):
     try:
         mesh = init_device_mesh("cuda", (1, 2),
                                 mesh_dim_names=("data", "model"))
-        for fn in _counters().values():
-            fn.launches = 0
+        _reset_counters()
         rec, kept = {}, {}
         for name, steps, first, build in _p10_runs():
             init_fn, run, net, key = build(mesh)
@@ -2249,7 +2247,7 @@ def _p10a_rank(rank: int, store: str, outdir: str):
             rec[f"{name}/secs"] = np.array(time.perf_counter() - t0)
             rec.update(_p10_record(name, st, metrics, net, mesh, key))
             kept[name] = (st, run, net)
-        rec["launches"] = np.array([_launches()[k] for k in _counters()])
+        rec["launches"] = np.array([_launches()[k] for k in _COUNTERS])
         # 10c: the 7f state saved at (1, 2), then continued with the
         # kernels and again on the plain step, bitwise
         st, run, net = kept["dqn 7f"]
@@ -2473,7 +2471,7 @@ def phase_tp(card, unsharded: dict, secs9: dict, tmp):
         raise PhaseError(f"10a: a 7f chunk at (1, 2) with the kernels != on "
                          f"the plain step: {rec['plain_differs']}")
     launches = {k: int(sum(r["launches"][i] for r in ranks))
-                for i, k in enumerate(_counters())}
+                for i, k in enumerate(_COUNTERS)}
     for r in ranks:
         for i, k in enumerate(("step", "raster")):
             if r["launches"][i] <= 0:
@@ -2575,8 +2573,7 @@ def _p11a_rank(rank: int, store: str, outdir: str):
     try:
         mesh = init_device_mesh("cuda", (2, 1),
                                 mesh_dim_names=("data", "model"))
-        for fn in _counters().values():
-            fn.launches = 0
+        _reset_counters()
         rec = {}
         for name, steps, first, build in _trainer_runs():
             init_fn, run = build(mesh)
@@ -2602,7 +2599,7 @@ def _p11a_rank(rank: int, store: str, outdir: str):
             rec.update({f"{name}/digest/{k}": v for k, v in digests.items()})
             rec.update({f"{name}/metric/{k}": v.cpu().numpy()
                         for k, v in metrics.items()})
-        rec["launches"] = np.array([_launches()[k] for k in _counters()])
+        rec["launches"] = np.array([_launches()[k] for k in _COUNTERS])
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
@@ -2644,7 +2641,7 @@ def phase_dp(card, unsharded: dict, secs9: dict, tmp):
             raise PhaseError(f"11a: the two data ranks' gathered {k} differ")
     rec = ranks[0]
     launches = {k: int(sum(r["launches"][i] for r in ranks))
-                for i, k in enumerate(_counters())}
+                for i, k in enumerate(_COUNTERS)}
     for r in ranks:
         if r["launches"][0] <= 0:
             raise PhaseError("11a: kernel step was not launched in a rank")
@@ -2726,8 +2723,7 @@ def phase_soak(card):
     admits, and kernel B's images pixel-exact to the host raster. Returns
     its launches."""
     torch_soak_fuzz = _tool("torch_soak_fuzz")
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     notes = []
     for what, argv in P11_SOAK:
         res = torch_soak_fuzz.soak(torch_soak_fuzz.parse_args(argv),
@@ -2757,8 +2753,7 @@ def phase_shim_soak(card):
     ``NativeTetrisEnv`` against the CPU plain path, over random
     configurations at B = 1. Returns its launches."""
     torch_soak_shim = _tool("torch_soak_shim")
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     try:
         res = torch_soak_shim.soak(torch_soak_shim.parse_args(P13_SOAK),
                                    out=lambda *a, **k: None)

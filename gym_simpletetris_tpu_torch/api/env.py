@@ -30,6 +30,7 @@ from ..core.state import EnvState, init_state
 from ..ops.bitops import unpack_board
 from ..ops.cuda_raster import rasterize_rows, raster_accumulate
 from ..ops.raster import grayscale_to_rgb
+from ..utils.profiling import count, span
 from . import spaces
 
 OBS_SIZE = 84
@@ -81,6 +82,7 @@ def _select_done(done: torch.Tensor, new: EnvState, old: EnvState) -> EnvState:
             "lines_cleared", "piece_height", "deaths")})
 
 
+@span("env.reset_mask")
 def apply_reset_mask(cfg: EnvConfig, state: EnvState, emitted: torch.Tensor,
                      mask: torch.Tensor):
     """Episode-reset the envs selected by ``mask`` (bool[B]): their state is
@@ -111,6 +113,7 @@ def soft_reset_fn(cfg: EnvConfig, state: EnvState,
     return build_observation(cfg, emitted), state
 
 
+@span("env.step")
 def step_fn(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
             injected_r: Optional[torch.Tensor] = None):
     """One batched transition: (obs, state, reward, done, info). With
@@ -155,6 +158,23 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
     if acc_mode not in ("storage", "delivered"):
         raise ValueError(f"acc_mode={acc_mode!r}")
 
+    @span("rollout.step")
+    def step(state: EnvState, a: torch.Tensor, acc: torch.Tensor):
+        if acc_mode == "delivered":
+            obs, state, reward, done, _ = step_fn(cfg, state, a)
+            if with_obs:
+                acc += obs
+            return state, reward, done
+        state, emitted, reward, done = E.engine_step(cfg, state, a)
+        if cfg.auto_reset:
+            state, emitted = apply_reset_mask(cfg, state, emitted, done)
+        if with_obs and cfg.obs_type != "ram":
+            raster_accumulate(cfg, emitted, acc, OBS_SIZE)
+        elif with_obs:
+            acc += build_observation_storage(cfg, emitted)
+        return state, reward, done
+
+    @span("rollout.call")
     def rollout(state: EnvState, actions: torch.Tensor):
         dev = state.device
         actions = torch.as_tensor(actions, device=dev).to(torch.int32)
@@ -168,19 +188,7 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
                               else torch.uint8)
         rewards, dones = [], []
         for a in actions:
-            if acc_mode == "delivered":
-                obs, state, reward, done, _ = step_fn(cfg, state, a)
-                if with_obs:
-                    acc += obs
-            else:
-                out = E.engine_step(cfg, state, a)
-                state, emitted, reward, done = out
-                if cfg.auto_reset:
-                    state, emitted = apply_reset_mask(cfg, state, emitted, done)
-                if with_obs and cfg.obs_type != "ram":
-                    raster_accumulate(cfg, emitted, acc, OBS_SIZE)
-                elif with_obs:
-                    acc += build_observation_storage(cfg, emitted)
+            state, reward, done = step(state, a, acc)
             rewards.append(reward)
             dones.append(done)
         empty = lambda dt: torch.empty((0, batch_size), dtype=dt, device=dev)
@@ -191,16 +199,22 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
     return rollout
 
 
+@span("env.to_host")
 def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
     """The tensors as numpy arrays of their dtypes and shapes, through one
     device -> host copy: each is flattened into one int32 buffer (4-byte
     dtypes by their bits, others by value), which is copied once and cut
     apart. On the card each separate ``.cpu()`` or ``int()`` is a sync.
-    Takes 4-byte dtypes and integer or bool dtypes of 1-2 bytes."""
+    Takes 4-byte dtypes and integer or bool dtypes of 1-2 bytes. Counted
+    as ``env.to_host.calls`` and ``env.to_host.bytes`` (the tensors'
+    bytes, from their shapes)."""
     for t in tensors:
         if t.element_size() > 4 or (t.is_floating_point()
                                     and t.element_size() != 4):
             raise TypeError(f"to_host does not take {t.dtype}")
+    count("env.to_host.calls")
+    count("env.to_host.bytes", sum(t.numel() * t.element_size()
+                                   for t in tensors))
     parts = [t.reshape(-1) for t in tensors]
     parts = [p.view(torch.int32) if p.element_size() == 4
              else p.to(torch.int32) for p in parts]

@@ -28,6 +28,7 @@ import numpy as np
 
 from ..core.config import EnvConfig
 from ..ops.bitops import unpack_board
+from ..utils.profiling import span
 from . import env as api_env
 from . import spaces
 from .engine import (StateReads, ascii_board, convert_grayscale,
@@ -142,6 +143,7 @@ class TetrisEnv:
         self.nb_actions = len(self.value_action_map)
 
     # -- gym API ----------------------------------------------------------------
+    @span("shim.reset")
     def reset(self, return_info: bool = False, injected_r: Optional[int] = None):
         inj = None if injected_r is None else [injected_r]
         if self._state is None:
@@ -153,6 +155,7 @@ class TetrisEnv:
         (obs,) = self._fetch(obs)
         return (obs, self._get_info()) if return_info else obs
 
+    @span("shim.step")
     def step(self, action, injected_r: Optional[int] = None):
         if self._state is None:
             raise RuntimeError("step() before reset()")

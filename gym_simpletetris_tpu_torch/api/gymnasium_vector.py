@@ -29,6 +29,7 @@ from ..core import engine as E
 from ..core import threefry
 from ..core.config import EnvConfig
 from ..core.state import key_data
+from ..utils.profiling import span
 from . import env as api_env
 
 
@@ -152,6 +153,7 @@ class _TorchVectorCore:
         (obs,), info = self._host(api_env.make_info(self._state), obs)
         return obs, info
 
+    @span("vector.step")
     def step(self, actions):
         action = torch.as_tensor(np.asarray(actions), device=self.device) \
             .to(torch.int32)

@@ -44,6 +44,7 @@ from .pieces import ROWMASKS_FLAT, NROWS, DY_OFF
 from .state import EnvState
 from . import threefry
 from ..ops.bitops import unpack_cells
+from ..utils.profiling import count, span
 
 _I32 = torch.int32
 
@@ -262,10 +263,13 @@ def piece_weight_sum(counts: torch.Tensor) -> torch.Tensor:
     return m.sum(dim=0).to(_I32)
 
 
+@span("engine.draw")
 def spawn_draw(state: EnvState, injected_r: Optional[torch.Tensor] = None):
     """Advance the engine key and take this step's spawn draws:
     (carry key, r int32[B]), for the envs from ``state.env_offset`` of the
-    global batch. ``injected_r`` replaces the threefry draws."""
+    global batch. ``injected_r`` replaces the threefry draws. Counted as
+    ``engine.draws``."""
+    count("engine.draws")
     carry_key, draw_key = threefry.split(state.key)
     if injected_r is None:
         r = threefry.draw_spawn_r(draw_key, state.shape_counts,
@@ -412,6 +416,7 @@ def engine_step(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     return step(cfg, state, action, r, key)
 
 
+@span("engine.clear")
 def engine_clear(cfg: EnvConfig, state: EnvState,
                  injected_r: Optional[torch.Tensor] = None):
     """Episode reset (``TetrisEngine.clear``): zero the board and the

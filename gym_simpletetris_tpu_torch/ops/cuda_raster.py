@@ -12,8 +12,9 @@ Two wrappers over one kernel:
 
 A CPU tensor goes to the plain versions in ``ops/raster.py``, a CUDA tensor
 to the kernel, anything else raises. Rows are [H, B] for single-word boards
-and [H, NW, B] for wide ones, at every width the geometry admits. Each
-wrapper's ``launches`` counts its kernel launches.
+and [H, NW, B] for wide ones, at every width the geometry admits. The
+counters ``kernel.raster.launches`` and ``kernel.raster_acc.launches``
+(``utils/profiling.py``) count each wrapper's kernel launches.
 
 The kernel's work items are bands of an image's pixel rows, each holding
 whole cell rows (``raster_bands``); a block builds the pixel pattern of each
@@ -29,6 +30,7 @@ import torch
 
 from ..core.config import EnvConfig
 from ..core.state import rows_shape
+from ..utils.profiling import count, span
 from .cuda_step import check_tensor
 from .raster import (device_axis_maps, raster_geometry, rasterize_rows_plain,
                      raster_accumulate_plain)
@@ -60,6 +62,7 @@ def _device_bands(d0: int, d1: int, size: int, device: torch.device):
     return R, torch.as_tensor(starts, device=device)
 
 
+@span("kernel.raster")
 def rasterize_rows(cfg: EnvConfig, rows: torch.Tensor,
                    size: int = 84) -> torch.Tensor:
     """Packed rows int32[H, B] or [H, NW, B] -> uint8[B, size, size]."""
@@ -70,13 +73,11 @@ def rasterize_rows(cfg: EnvConfig, rows: torch.Tensor,
     out = torch.empty((rows.shape[-1], size, size), dtype=torch.uint8,
                       device=rows.device)
     _launch(cfg, rows, out, size, accumulate=False)
-    rasterize_rows.launches += 1
+    count("kernel.raster.launches")
     return out
 
 
-rasterize_rows.launches = 0
-
-
+@span("kernel.raster_acc")
 def raster_accumulate(cfg: EnvConfig, rows: torch.Tensor, acc: torch.Tensor,
                       size: int = 84) -> torch.Tensor:
     """``acc += raster(rows)`` in place (uint8 wraparound); returns ``acc``."""
@@ -85,11 +86,8 @@ def raster_accumulate(cfg: EnvConfig, rows: torch.Tensor, acc: torch.Tensor,
     if rows.device.type != "cuda":
         raise ValueError(f"no raster implementation for device {rows.device}")
     _launch(cfg, rows, acc, size, accumulate=True)
-    raster_accumulate.launches += 1
+    count("kernel.raster_acc.launches")
     return acc
-
-
-raster_accumulate.launches = 0
 
 
 def _launch(cfg: EnvConfig, rows: torch.Tensor, out: torch.Tensor, size: int,

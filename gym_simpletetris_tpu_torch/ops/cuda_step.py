@@ -5,7 +5,8 @@ advanced key (``core.engine.spawn_draw`` makes both outside the kernel, so
 injected and threefry draws go through one kernel). A CPU state goes to
 ``core.engine.transition_plain``; a CUDA state launches the kernel, which
 replaces the Pallas TPU kernel ``gym_simpletetris_tpu/ops/pallas_step.py``;
-any other device raises. ``step.launches`` counts kernel launches. Rows are
+any other device raises. The counter ``kernel.step.launches``
+(``utils/profiling.py``) counts kernel launches. Rows are
 [H, B] for single-word boards and [H, NW, B] for wide ones.
 
 The kernel has three instances, all hand-written: a warp per env over a
@@ -25,6 +26,7 @@ import torch
 from ..core.config import EnvConfig
 from ..core.engine import StepOut, transition_plain
 from ..core.state import EnvState, SCALAR_FIELDS, rows_shape
+from ..utils.profiling import count, span
 from . import _build
 
 _FLAGS = ("reward_step", "penalise_height", "penalise_height_increase",
@@ -152,6 +154,7 @@ def out_sizes(H: int, NW: int, B: int) -> tuple:
             (B,) * len(SCALAR_FIELDS) + (B, -(-B // 4)))
 
 
+@span("kernel.step")
 def step(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
          r_draw: torch.Tensor, key: torch.Tensor) -> StepOut:
     """One transition with draws ``r_draw`` int32[B]; ``key`` becomes the
@@ -162,9 +165,6 @@ def step(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     if dev.type == "cpu":
         return transition_plain(cfg, state, action, r_draw, key)
     raise ValueError(f"no step implementation for device {dev}")
-
-
-step.launches = 0
 
 # The launch's arguments in one record (csrc/step.cu LaunchArgs): the 15
 # input pointers, the two output buffers, the stream; H, NW, B, width,
@@ -245,7 +245,7 @@ def _launch(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
         _stream(index), *call.ints))
     if err != 0:
         raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
-    step.launches += 1
+    count("kernel.step.launches")
     rows_out, emitted, counts = boards.split_with_sizes(call.board_rows)
     if call.rows_shape is not None:
         rows_out = rows_out.view(call.rows_shape)

@@ -15,6 +15,7 @@ from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
 from gym_simpletetris_tpu_torch.core import engine as E
 from gym_simpletetris_tpu_torch.core.state import FIELDS, init_state
 from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step, raster
+from gym_simpletetris_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -64,7 +65,7 @@ def test_step_kernel_matches_plain(dev, flags, B, mix):
     cfg = EnvConfig(**flags)
     rng = np.random.RandomState(0)
     s_k = s_p = prefilled_state(cfg, B, rng, dev)
-    n = cuda_step.step.launches
+    n = counters()["kernel.step.launches"]
     for t in range(60):
         a = torch.as_tensor(mix_actions(mix, B, rng), device=dev)
         r = torch.as_tensor(rng.randint(1, 36, B), device=dev)
@@ -78,7 +79,7 @@ def test_step_kernel_matches_plain(dev, flags, B, mix):
                            o_p.reward.view(torch.int32)), t
         assert torch.equal(o_k.done, o_p.done), t
         s_k, s_p = o_k.state, o_p.state
-    assert cuda_step.step.launches == n + 60
+    assert counters()["kernel.step.launches"] == n + 60
 
 
 @pytest.mark.parametrize("w,h,B", [(10, 20, 4096), (10, 20, 33),
@@ -185,12 +186,13 @@ def test_heuristic_on_the_card_matches_the_cpu(dev):
     policy = make_heuristic_policy(cfg)
     envs = [TetrisVectorEnv(cfg, 64, device=d) for d in ("cpu", "cuda")]
     states = [env.reset(0)[1] for env in envs]
-    n = cuda_step.step.launches
+    n = counters()["kernel.step.launches"]
     for t in range(40):
         acts = [policy(s) for s in states]
         assert torch.equal(acts[0], acts[1].cpu()), t
         states = [env.step(s, a)[1] for env, s, a in zip(envs, states, acts)]
-    assert cuda_step.step.launches == n + 80     # lookahead + env step
+    # lookahead + env step
+    assert counters()["kernel.step.launches"] == n + 80
 
 
 def test_ppo_update_on_the_card_matches_the_cpu_collection(dev, monkeypatch):
@@ -340,13 +342,14 @@ def test_obs_ring_actor_step_kernels_match_plain(dev, monkeypatch):
     s = init_fn(0)
     for _ in range(3):
         s, _ = chunk_fn.actor_half(s)
-    a0, b0 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    c = counters()
+    a0, b0 = c["kernel.step.launches"], c["kernel.raster.launches"]
     k, _ = chunk_fn.actor_half(_clone(s))
-    assert cuda_step.step.launches == a0 + 1
-    assert cuda_raster.rasterize_rows.launches == b0 + 1
+    assert counters()["kernel.step.launches"] == a0 + 1
+    assert counters()["kernel.raster.launches"] == b0 + 1
     _plain_path(monkeypatch)
     p, _ = chunk_fn.actor_half(_clone(s))
-    assert cuda_step.step.launches == a0 + 1
+    assert counters()["kernel.step.launches"] == a0 + 1
     for f in FIELDS:
         assert torch.equal(getattr(k.env_state, f), getattr(p.env_state, f)), f
     assert torch.equal(k.obs, p.obs) and torch.equal(k.key, p.key)
@@ -362,12 +365,12 @@ def test_es_generation_kernels_match_plain(dev, monkeypatch):
     cfg = es.ESConfig(pop_size=16, envs_per_member=2, horizon=32)
     init_fn, gen_fn, _ = es.make_es(cfg, dev)
     s0 = init_fn(0)
-    a0 = cuda_step.step.launches
+    a0 = counters()["kernel.step.launches"]
     k, mk = gen_fn(_clone(s0))
-    assert cuda_step.step.launches == a0 + 32
+    assert counters()["kernel.step.launches"] == a0 + 32
     _plain_path(monkeypatch)
     p, mp = gen_fn(_clone(s0))
-    assert cuda_step.step.launches == a0 + 32
+    assert counters()["kernel.step.launches"] == a0 + 32
     assert torch.equal(k.theta, p.theta) and torch.equal(k.key, p.key)
     for name in mk:
         assert torch.equal(mk[name], mp[name]), name
@@ -399,15 +402,17 @@ def test_shim_on_the_card_matches_plain(dev, monkeypatch, kw):
     """The single-env shim at B = 1 through kernels A and B, bitwise equal
     to the same run on the plain step and raster, none of which launches a
     kernel."""
-    a0, b0 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    c = counters()
+    a0, b0 = c["kernel.step.launches"], c["kernel.raster.launches"]
     k = _shim_run(kw, 120, 3)
-    a1, b1 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    c = counters()
+    a1, b1 = c["kernel.step.launches"], c["kernel.raster.launches"]
     assert a1 - a0 == 120
     assert b1 - b0 > (0 if kw["obs_type"] == "ram" else 120)
     _plain_path(monkeypatch)
     p = _shim_run(kw, 120, 3)
-    assert (cuda_step.step.launches, cuda_raster.rasterize_rows.launches) \
-        == (a1, b1)
+    c = counters()
+    assert (c["kernel.step.launches"], c["kernel.raster.launches"]) == (a1, b1)
     assert len(k) == len(p)
     for x, y in zip(k, p):
         np.testing.assert_array_equal(x[0], y[0])
@@ -425,10 +430,10 @@ def test_render_kernel_at_160_and_512(dev, w, h):
     for a in [2, 0, 2, 1, 1, 2, 5, 2, 0, 0, 2]:
         env.step(a)
     board = env._board()
-    b0 = cuda_raster.rasterize_rows.launches
+    b0 = counters()["kernel.raster.launches"]
     rgb = env.render("rgb_array")
     human = human_image(env.config, env._rows(), 512)
-    assert cuda_raster.rasterize_rows.launches == b0 + 2
+    assert counters()["kernel.raster.launches"] == b0 + 2
     np.testing.assert_array_equal(
         rgb[..., 0], raster.rasterize_host(board.T, h, w, 160))
     np.testing.assert_array_equal(

@@ -18,7 +18,7 @@ from gym_simpletetris_tpu.ops.pallas_step import engine_step_pallas
 from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.api import env as port_env
 from gym_simpletetris_tpu_torch.core import engine as E
-from gym_simpletetris_tpu_torch.ops import cuda_step
+from gym_simpletetris_tpu_torch.utils.profiling import counters
 from port_harness import assert_state_equal, to_port
 
 FLAG_SETS = {
@@ -107,7 +107,8 @@ def test_engine_step_matches_jax(name):
         assert_state_equal(js, ts, f"{name} reset t={t}")
         np.testing.assert_array_equal(te.numpy().view(np.uint32), np.asarray(je))
     assert deaths > 0, deaths
-    assert cuda_step.step.launches == 0     # CPU tensors never launch
+    # CPU tensors never launch
+    assert counters()["kernel.step.launches"] == 0
 
 
 def line_clear_jax_state(jcfg, B, rng):

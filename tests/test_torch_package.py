@@ -17,6 +17,7 @@ from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
 from gym_simpletetris_tpu_torch.core import engine as E
 from gym_simpletetris_tpu_torch.core.state import init_state
 from gym_simpletetris_tpu_torch.ops import _build, cuda_step
+from gym_simpletetris_tpu_torch.utils.profiling import counters
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -215,10 +216,10 @@ def test_library_name_follows_the_sources():
 def test_cpu_step_never_launches():
     cfg = EnvConfig()
     s, _ = E.engine_clear(cfg, init_state(cfg, 4, 0, device="cpu"))
-    n = cuda_step.step.launches
+    n = counters()["kernel.step.launches"]
     out = E.engine_step(cfg, s, np.full(4, 2))
     assert out.state.rows.device.type == "cpu"
-    assert cuda_step.step.launches == n
+    assert counters()["kernel.step.launches"] == n
 
 
 _MESH_MODULES = ("gym_simpletetris_tpu_torch.parallel.mesh",

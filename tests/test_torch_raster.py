@@ -18,6 +18,7 @@ from gym_simpletetris_tpu.ops.raster import (
     grayscale_to_rgb as jax_grayscale_to_rgb)
 from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.ops import bitops, cuda_raster, raster
+from gym_simpletetris_tpu_torch.utils.profiling import counters
 
 SHAPES = [(10, 20), (4, 5), (16, 8), (9, 12), (24, 20)]
 
@@ -71,15 +72,16 @@ def test_plain_accumulate_matches_pallas(w, h):
 def test_cpu_wrappers_take_the_plain_versions():
     cfg = EnvConfig()
     _, _, trows = _rows(10, 20, 4, 3)
-    n_r, n_a = cuda_raster.rasterize_rows.launches, \
-        cuda_raster.raster_accumulate.launches
+    c = counters()
+    n_r, n_a = c["kernel.raster.launches"], c["kernel.raster_acc.launches"]
     img = cuda_raster.rasterize_rows(cfg, trows)
     assert torch.equal(img, raster.rasterize_rows_plain(cfg, trows))
     acc = torch.full((4, 84, 84), 200, dtype=torch.uint8)
     cuda_raster.raster_accumulate(cfg, trows, acc)
     assert torch.equal(acc, torch.full_like(acc, 200) + img)
-    assert (cuda_raster.rasterize_rows.launches,
-            cuda_raster.raster_accumulate.launches) == (n_r, n_a)
+    c = counters()
+    assert (c["kernel.raster.launches"],
+            c["kernel.raster_acc.launches"]) == (n_r, n_a)
     with pytest.raises(ValueError, match="device"):
         cuda_raster.rasterize_rows(cfg, trows.to("meta"))
 

@@ -23,6 +23,7 @@ from gym_simpletetris_tpu_torch.core import engine as E
 from gym_simpletetris_tpu_torch.core.state import (
     FIELDS, SCALAR_FIELDS, init_state)
 from gym_simpletetris_tpu_torch.ops import _build, cuda_step
+from gym_simpletetris_tpu_torch.utils import profiling
 
 BATCHES = (1, 2, 31, 32, 33, 333, 512, 1000, 3584, 4096, 4097, 16384, 65536)
 NWS = (1, 2, 3, 4, 17, 32, 33)
@@ -194,8 +195,8 @@ def fake_library(monkeypatch):
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(cuda_step, "_stream", lambda index: 0)
     monkeypatch.setattr(cuda_step, "_sm_count", lambda index: 132)
-    # the fake launches count; restore the counter other files hold at 0
-    monkeypatch.setattr(cuda_step.step, "launches", cuda_step.step.launches)
+    # the fake launches count; restore the counters other files hold at 0
+    monkeypatch.setattr(profiling, "_counts", profiling.counters())
     return lib
 
 
@@ -211,9 +212,9 @@ def _inputs(cfg, B):
 def test_wrapper_views_follow_the_kernel_layout(fake_library, w, h, B):
     cfg = EnvConfig(width=w, height=h)
     s, a, r, key = _inputs(cfg, B)
-    n = cuda_step.step.launches
+    n = profiling.counters()["kernel.step.launches"]
     out = cuda_step._launch(cfg, s, a, r, key)
-    assert cuda_step.step.launches == n + 1
+    assert profiling.counters()["kernel.step.launches"] == n + 1
     (ptrs, boards, small, stream, H, NW, B_, rest), = fake_library.calls
     assert (H, NW, B_, stream) == (h, cfg.num_words, B, 0)
     ins = [s.rows] + [getattr(s, f) for f in SCALAR_FIELDS] + [

@@ -34,7 +34,8 @@ from gym_simpletetris_tpu_torch.api import spaces
 from gym_simpletetris_tpu_torch.core import engine as E
 from gym_simpletetris_tpu_torch.core.state import (
     FIELDS, init_state, state_from_numpy, state_to_numpy)
-from gym_simpletetris_tpu_torch.ops import bitops, cuda_raster, cuda_step, raster
+from gym_simpletetris_tpu_torch.ops import bitops, raster
+from gym_simpletetris_tpu_torch.utils.profiling import counters
 
 
 def _pair_cfg(**kw):
@@ -192,7 +193,8 @@ def test_engine_step_matches_jax(name, width):
         assert_state_equal(js, ts, f"{name} w={width} reset t={t}")
         np.testing.assert_array_equal(te.numpy().view(np.uint32), np.asarray(je))
     assert deaths > 0, deaths
-    assert cuda_step.step.launches == 0     # CPU tensors never launch
+    # CPU tensors never launch
+    assert counters()["kernel.step.launches"] == 0
 
 
 @pytest.mark.parametrize("width", [25, 40, 57])
@@ -366,8 +368,9 @@ def test_widest_board_steps_on_the_cpu():
     rng = np.random.RandomState(4)
     js = prefilled_jax_state(jcfg, B, rng)
     ts = to_port(js)
-    n = (cuda_step.step.launches, cuda_raster.rasterize_rows.launches,
-         cuda_raster.raster_accumulate.launches)
+    launches = ("kernel.step.launches", "kernel.raster.launches",
+                "kernel.raster_acc.launches")
+    n = [counters()[k] for k in launches]
     j_inj = jax.jit(lambda s, a, r: JE.engine_step(jcfg, s, a, injected_r=r))
     for t in range(30):
         a, r = rng.randint(0, 7, B), rng.randint(1, 36, B)
@@ -379,5 +382,4 @@ def test_widest_board_steps_on_the_cpu():
         bitops.unpack_board(cfg, ts.rows, torch.uint8).numpy(),
         np.asarray(jax_bitops.unpack_board(jcfg, js.rows, jnp.uint8)))
     assert int(ts.deaths.sum()) > 0
-    assert n == (cuda_step.step.launches, cuda_raster.rasterize_rows.launches,
-                 cuda_raster.raster_accumulate.launches)
+    assert [counters()[k] for k in launches] == n

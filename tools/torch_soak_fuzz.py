@@ -269,7 +269,8 @@ def soak(args, out=print) -> dict:
     steps and seconds."""
     import torch
     from gym_simpletetris_tpu_torch.native import drive_many
-    from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step
+    from gym_simpletetris_tpu_torch.ops import cuda_step
+    from gym_simpletetris_tpu_torch.utils.profiling import counters
     if args.cpu:
         if args.instances != "plan":
             raise ValueError("--instances all forces kernel A's instances: "
@@ -285,7 +286,7 @@ def soak(args, out=print) -> dict:
     B, T = args.batch, args.steps
     total = pixel_steps = 0
     reached: dict = {}
-    b0 = cuda_raster.rasterize_rows.launches
+    b0 = counters()["kernel.raster.launches"]
     t0 = time.time()
     for ci, cfg, script, actions, seeds in sample(args, rng):
         oracle = drive_many(actions.T, seeds, width=cfg.width,
@@ -296,7 +297,7 @@ def soak(args, out=print) -> dict:
             runs = list(cuda_step.instances_for(cfg.height, cfg.num_words))
         names = []
         for inst in runs:
-            a0 = cuda_step.step.launches
+            a0 = counters()["kernel.step.launches"]
             em, rew, done, state = replay(cfg, oracle, actions, device, inst)
             check(cfg, script, inst, oracle, em, rew, done, state)
             name = inst
@@ -306,7 +307,7 @@ def soak(args, out=print) -> dict:
                                               B).instance)
             got = reached.setdefault(name, {"configs": 0, "launches": 0})
             got["configs"] += 1
-            got["launches"] += cuda_step.step.launches - a0
+            got["launches"] += counters()["kernel.step.launches"] - a0
             names.append(name)
             total += B * T
         if args.pixels:
@@ -316,7 +317,7 @@ def soak(args, out=print) -> dict:
             f"OK ({total / 1e6:.2f}M steps, {time.time() - t0:.0f}s) "
             f"[{' '.join(names)}]", flush=True)
     return {"steps": total, "configs": args.configs, "instances": reached,
-            "raster_launches": cuda_raster.rasterize_rows.launches - b0,
+            "raster_launches": counters()["kernel.raster.launches"] - b0,
             "pixel_steps": pixel_steps, "seconds": time.time() - t0}
 
 

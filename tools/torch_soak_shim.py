@@ -267,7 +267,7 @@ def soak(args, out=print) -> dict:
     episodes and seconds per surface, the renders compared, kernel A's and
     kernel B's launches and the seconds."""
     import torch
-    from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step
+    from gym_simpletetris_tpu_torch.utils.profiling import counters
     if args.cpu:
         device = "cpu"
     else:
@@ -276,7 +276,8 @@ def soak(args, out=print) -> dict:
                          "through the kernels on the card (pass --cpu for "
                          "the plain engine)")
         device = "cuda"
-    a0, b0 = cuda_step.step.launches, cuda_raster.rasterize_rows.launches
+    c = counters()
+    a0, b0 = c["kernel.step.launches"], c["kernel.raster.launches"]
     per = {s: {"configs": 0, "steps": 0, "episodes": 0, "seconds": 0.0}
            for s in SURFACES}
     total = episodes = renders = 0
@@ -301,8 +302,8 @@ def soak(args, out=print) -> dict:
             f"({total} steps, {time.time() - t0:.0f}s)", flush=True)
     return {"steps": total, "surfaces": per, "episodes": episodes,
             "renders": renders,
-            "step_launches": cuda_step.step.launches - a0,
-            "raster_launches": cuda_raster.rasterize_rows.launches - b0,
+            "step_launches": counters()["kernel.step.launches"] - a0,
+            "raster_launches": counters()["kernel.raster.launches"] - b0,
             "seconds": time.time() - t0}
 
 
