@@ -13,8 +13,12 @@ board, and times the kernels beside their plain versions: wrapper ms by CUDA
 events, device us by CUDA events around a CUDA-graph replay of 20
 launches, each against its bound (the bytes it must move at the HBM rate;
 the raster-accumulate with L2 evicted before each launch, its L2-warm time
-beside it), the raster kernels also at 160 and 512 px.
-Then the trainer
+beside it), the raster kernels also at 160 and 512 px; 6d holds the
+spawn-draw kernel bitwise against the plain draw at B = 4096 (a key chain
+at env offsets 0 and 2048, the injected-r path) and times both (device us
+by CUDA-graph replay, wrapper us by CUDA events over 200 calls). The main
+path must launch the draw kernel once for every spawn draw, and every
+plain-path run below takes the plain draw too. Then the trainer
 path: the lookahead heuristic (kernel A at 7 * B), the greedy evaluation of
 the line-clear PPO checkpoint (``artifacts/ppo_lineclear_params.npz``; it
 must clear at least 4 lines per episode), and PPO updates through
@@ -553,7 +557,8 @@ def phase_golden():
 # the kernel launch counters of utils/profiling.py, by the names printed here
 _COUNTERS = {"step": "kernel.step.launches",
              "raster": "kernel.raster.launches",
-             "raster_accumulate": "kernel.raster_acc.launches"}
+             "raster_accumulate": "kernel.raster_acc.launches",
+             "draw": "kernel.draw.launches"}
 
 
 def _reset_counters() -> None:
@@ -565,7 +570,8 @@ def phase_main_path(board: dict, label: str):
     """The main path on ``board`` (EnvConfig width / height): reset, 64
     steps and a T-step rollout for each obs type, the rollout held to the
     same steps taken one at a time. The kernel counts are set to 0 just
-    before and read just after; each kernel must have launched."""
+    before and read just after; each kernel must have launched, the draw
+    kernel once for every spawn draw."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
@@ -616,6 +622,11 @@ def phase_main_path(board: dict, label: str):
         if n <= 0:
             raise PhaseError(f"kernel {k} was not launched on the main path "
                              f"{board or 'default'}")
+    from gym_simpletetris_tpu_torch.utils import profiling
+    draws = profiling.counters()["engine.draws"]
+    if launches["draw"] != draws:
+        raise PhaseError(f"{launches['draw']} draw kernel launches for "
+                         f"{draws} spawn draws on the main path")
     log(f"{label}: kernel launches {launches}")
     return launches, envs
 
@@ -704,6 +715,56 @@ def _step_reading(B, t):
                         for o in t["others"]])
 
 
+def phase_draw_kernel():
+    """6d: the spawn-draw kernel (``csrc/draw.cu``) against the plain draw
+    (``threefry.split`` and ``draw_spawn_r``) at B = 4096: a 64-draw key
+    chain at env offsets 0 and 2048 and the injected-r path (the key
+    alone), bitwise. Then, for information, its device us by CUDA-graph
+    replay and its wrapper us by CUDA events over 200 calls, beside the
+    plain draw's. Returns the readings."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch.core import threefry
+    from gym_simpletetris_tpu_torch.core.state import _key_tensor
+    from gym_simpletetris_tpu_torch.ops import cuda_draw
+    from gym_simpletetris_tpu_torch.utils import kernel_timing as kt
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(17)
+
+    def plain(key, counts, offset=0):
+        carry, draw_key = threefry.split(key)
+        return carry, threefry.draw_spawn_r(draw_key, counts, offset)
+
+    n_cmp = 0
+    for offset in (0, 2048):
+        counts = torch.as_tensor(
+            rng.randint(0, 400, (7, B_MAIN)).astype(np.int32), device=dev)
+        key = key_p = _key_tensor(np.array([0x80000000, 0x7FFFFFFF],
+                                           np.uint32), dev)
+        for t in range(64):
+            key, r = cuda_draw.draw(key, counts, offset)
+            key_p, r_p = plain(key_p, counts, offset)
+            inj_key, inj_r = cuda_draw.draw(key_p, counts, offset, r_p)
+            if not (torch.equal(key, key_p) and torch.equal(r, r_p)
+                    and torch.equal(inj_key, threefry.split(key_p)[0])
+                    and torch.equal(inj_r, r_p)):
+                raise PhaseError(f"draw kernel != plain draw at offset "
+                                 f"{offset}, draw {t}")
+            n_cmp += 1
+    got = dict(
+        comparisons=n_cmp,
+        device_us=kt.device_us(lambda: cuda_draw.draw(key, counts)),
+        wrapper_us=1e3 * kt.sync_ms(lambda: cuda_draw.draw(key, counts), 200),
+        plain_device_us=kt.device_us(lambda: plain(key, counts)),
+        plain_wrapper_us=1e3 * kt.sync_ms(lambda: plain(key, counts), 200))
+    log(f"phase 6d draw kernel: {n_cmp} draws at B={B_MAIN} (offsets 0 and "
+        f"2048, with and without injected r) equal to the plain draw; "
+        f"device {got['device_us']:.2f} us (plain "
+        f"{got['plain_device_us']:.2f} us), wrapper {got['wrapper_us']:.2f} "
+        f"us (plain {got['plain_wrapper_us']:.2f} us) a draw")
+    return got
+
+
 # ------------------------------------------------------------ trainer path
 
 TRAIN_B = 512
@@ -752,21 +813,23 @@ def _launches() -> dict:
 @contextlib.contextmanager
 def _plain_path():
     """The trainer path on the plain versions, for a comparison run: the env
-    step and raster of ``api.env`` and the heuristic's lookahead step."""
+    step and raster of ``api.env``, the heuristic's lookahead step and the
+    engine's spawn draw."""
     from gym_simpletetris_tpu_torch.api import env as api_env
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.models import heuristic
     from gym_simpletetris_tpu_torch.ops import raster
     saved = (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
-             api_env.raster_accumulate)
+             api_env.raster_accumulate, E.spawn_draw)
     E.engine_step = heuristic.engine_step = E.engine_step_plain
     api_env.rasterize_rows = raster.rasterize_rows_plain
     api_env.raster_accumulate = raster.raster_accumulate_plain
+    E.spawn_draw = E.spawn_draw_plain
     try:
         yield
     finally:
         (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
-         api_env.raster_accumulate) = saved
+         api_env.raster_accumulate, E.spawn_draw) = saved
 
 
 def _play(cfg, act, steps):
@@ -2822,6 +2885,8 @@ def main() -> int:
             wide_envs, WIDE_MAIN, "phase 6w wide timing",
             [(w40, _random_rows(w40, 1024, rng), 512)])
         took("6-6w")
+        draw = phase_draw_kernel()
+        took("6d")
         trainer_err = phase_trainer_path()
         took("7a-7e")
         import tempfile
@@ -2859,12 +2924,12 @@ def main() -> int:
         return 1
     pkg = "gym_simpletetris_tpu_torch/csrc/"
     kernels = []
+    total = {k: v + sum(part.get(k, 0) for part in (
+        dqn_launches, ring_launches, es_launches, surface_launches,
+        mesh_launches, tp_launches, dp_launches, soak_launches,
+        shim_soak_launches)) for k, v in launches.items()}
     for suffix, n, err, t, d in (
-            ("", {k: v + dqn_launches[k] + ring_launches[k] + es_launches[k]
-                  + surface_launches[k] + mesh_launches[k] + tp_launches[k]
-                  + dp_launches[k] + soak_launches[k]
-                  + shim_soak_launches[k]
-                  for k, v in launches.items()},
+            ("", total,
              {k: max(v, trainer_err.get(k, 0.0)) for k, v in
               dict(raster_err, step=step_err).items()}, ms, dev),
             ("_wide", wide_launches, dict(wide_raster_err, step=wide_step_err),
@@ -2879,6 +2944,13 @@ def main() -> int:
                 launches=n[name], max_abs_err=err[name], ms=t[name][0],
                 plain_ms=t[name][1], bound_ms=d[name]["bound_us"] / 1e3,
                 bound_by="bytes", library_ms=None, **d[name]))
+    kernels.append(dict(
+        name="draw", route="cuda", source=pkg + "draw.cu", replaces=None,
+        launches=total["draw"], max_abs_err=0.0,
+        ms=draw["wrapper_us"] / 1e3, plain_ms=draw["plain_wrapper_us"] / 1e3,
+        device_us=draw["device_us"],
+        plain_device_us=draw["plain_device_us"], bound_by="launch",
+        library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

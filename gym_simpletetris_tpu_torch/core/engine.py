@@ -13,8 +13,10 @@ bit operation extends word by word; the one cross-word operation is the
 piece-mask placement (a two-word funnel shift, ``piece_masks``).
 
 ``engine_step`` dispatches on the state's device: a CUDA state goes to the
-step kernel (``ops/cuda_step.py``), a CPU state to the plain body below.
-``engine_step_plain`` runs the plain body on any device.
+step kernel (``ops/cuda_step.py``), a CPU state to the plain body below;
+``spawn_draw`` likewise to the draw kernel (``ops/cuda_draw.py``) or to
+``spawn_draw_plain``. ``engine_step_plain`` runs the plain body and the
+plain draw on any device.
 
 Words are int32 tensors holding uint32 bits. A right shift copies bit 31 down,
 so every ``>>`` of a board word is masked; masks reach bit 31 at width 24 and
@@ -263,13 +265,10 @@ def piece_weight_sum(counts: torch.Tensor) -> torch.Tensor:
     return m.sum(dim=0).to(_I32)
 
 
-@span("engine.draw")
-def spawn_draw(state: EnvState, injected_r: Optional[torch.Tensor] = None):
-    """Advance the engine key and take this step's spawn draws:
-    (carry key, r int32[B]), for the envs from ``state.env_offset`` of the
-    global batch. ``injected_r`` replaces the threefry draws. Counted as
-    ``engine.draws``."""
-    count("engine.draws")
+def spawn_draw_plain(state: EnvState,
+                     injected_r: Optional[torch.Tensor] = None):
+    """``spawn_draw`` in plain PyTorch on any device: ``threefry.split`` and
+    ``threefry.draw_spawn_r`` (the draw kernel's oracle)."""
     carry_key, draw_key = threefry.split(state.key)
     if injected_r is None:
         r = threefry.draw_spawn_r(draw_key, state.shape_counts,
@@ -277,6 +276,21 @@ def spawn_draw(state: EnvState, injected_r: Optional[torch.Tensor] = None):
     else:
         r = torch.as_tensor(injected_r, device=state.device).to(_I32)
     return carry_key, r.contiguous()
+
+
+@span("engine.draw")
+def spawn_draw(state: EnvState, injected_r: Optional[torch.Tensor] = None):
+    """Advance the engine key and take this step's spawn draws:
+    (carry key, r int32[B]), for the envs from ``state.env_offset`` of the
+    global batch. ``injected_r`` replaces the threefry draws. A CUDA state
+    goes to the draw kernel (``ops/cuda_draw.py``), any other to
+    ``spawn_draw_plain``. Counted as ``engine.draws``."""
+    count("engine.draws")
+    if state.key.is_cuda:
+        from ..ops.cuda_draw import draw
+        return draw(state.key, state.shape_counts, state.env_offset,
+                    injected_r)
+    return spawn_draw_plain(state, injected_r)
 
 
 # ------------------------------------------------------------------------- step
@@ -400,8 +414,9 @@ def transition_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
 
 def engine_step_plain(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
                       injected_r: Optional[torch.Tensor] = None) -> StepOut:
-    """The plain PyTorch transition on any device (the kernel's oracle)."""
-    key, r = spawn_draw(state, injected_r)
+    """The plain PyTorch transition on any device, its draw included (the
+    kernels' oracle)."""
+    key, r = spawn_draw_plain(state, injected_r)
     return transition_plain(cfg, state, action, r, key)
 
 

@@ -132,4 +132,6 @@ def load_library() -> ctypes.CDLL:
     lib.tetris_raster_launch.argtypes = [vp, i, i, i, vp, vp, vp, i, i, i, vp,
                                          i, i, vp]
     lib.tetris_raster_launch.restype = i
+    lib.tetris_draw_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+    lib.tetris_draw_launch.restype = i
     return lib

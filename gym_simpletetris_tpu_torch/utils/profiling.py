@@ -15,8 +15,9 @@
   holds exactly what it held without them.
 - ``count(name, n=1)``: a counter, always on. The port's counters:
   ``kernel.step.launches``, ``kernel.raster.launches``,
-  ``kernel.raster_acc.launches`` (its CUDA kernels' launches),
-  ``engine.draws`` (spawn draws) and ``env.to_host.calls`` /
+  ``kernel.raster_acc.launches``, ``kernel.draw.launches`` (its CUDA
+  kernels' launches; on the card ``kernel.draw.launches`` equals
+  ``engine.draws``), ``engine.draws`` (spawn draws) and ``env.to_host.calls`` /
   ``env.to_host.bytes`` (copies to the host and the bytes of the tensors
   they took, from their shapes).
 - ``spans_between(lo_ns, hi_ns)``, ``counters()`` and ``reset()`` read and

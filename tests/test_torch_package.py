@@ -210,7 +210,8 @@ def test_library_name_follows_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libtetris_kernels_") and path.suffix == ".so"
-    assert sorted(p.name for p in _build._sources()) == ["raster.cu", "step.cu"]
+    assert sorted(p.name for p in _build._sources()) == [
+        "draw.cu", "raster.cu", "step.cu"]
 
 
 def test_cpu_step_never_launches():

@@ -324,3 +324,30 @@ def test_spawn_draw_block_matches_the_global_draw():
     for off, b in ((0, 8), (8, 16), (24, 8)):
         part = threefry.draw_spawn_r(k, counts[:, off:off + b], off)
         np.testing.assert_array_equal(part.numpy(), whole[off:off + b].numpy())
+
+
+def test_spawn_draw_on_the_cpu_is_the_plain_draw_and_matches_jax():
+    """A CPU state's spawn draw launches no kernel (the draw kernel is for
+    CUDA states) and gives JAX's carry key and draws, at a sharded env
+    offset too."""
+    from gym_simpletetris_tpu_torch.core import engine as E
+    from gym_simpletetris_tpu_torch.core.config import EnvConfig
+    from gym_simpletetris_tpu_torch.core.state import init_state
+    from gym_simpletetris_tpu_torch.utils.profiling import counters
+    rng = np.random.RandomState(17)
+    for words in _keys(6, seed=17):
+        counts = rng.randint(0, 400, (7, 40)).astype(np.int32)
+        jcarry, jdraw = jax_engine._advance_key(jnp.asarray(words, jnp.uint32))
+        want = np.asarray(jax_engine.draw_spawn_r(jdraw, jnp.asarray(counts)))
+        for off, b in ((0, 40), (24, 16)):
+            s = init_state(EnvConfig(), b, words, device="cpu",
+                           env_offset=off).replace(shape_counts=torch.from_numpy(
+                               counts[:, off:off + b].copy()))
+            n = counters()
+            key, r = E.spawn_draw(s)
+            m = counters()
+            assert m["kernel.draw.launches"] == n["kernel.draw.launches"]
+            assert m["engine.draws"] == n["engine.draws"] + 1
+            np.testing.assert_array_equal(_u32(key), np.asarray(jcarry))
+            assert r.dtype == torch.int32
+            np.testing.assert_array_equal(r.numpy(), want[off:off + b])
