@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from ..core import threefry
 from ..core.engine import NUM_ACTIONS
+from ..utils.profiling import count, span
 from .actor_critic import Conv, Dense, Layer, linear
 
 
@@ -87,9 +88,11 @@ class NoisyDense(Layer):
             for p in (self.weight_sigma, self.bias_sigma):
                 p.fill_(self.sigma0 / math.sqrt(fin))
 
+    @span("model.noise")
     def noisy_weights(self, noise_key: torch.Tensor):
         """(weight, bias) under the noise drawn from ``noise_key`` (the key
         the whole network was given)."""
+        count("model.noise_draws")
         rows, in_f = self.weight_mu.shape
         ki, ko = threefry.split(threefry.flax_rng(noise_key, *self.path, 1))
         e_in = _signed_sqrt(threefry.normal(ki, (in_f, 1)))

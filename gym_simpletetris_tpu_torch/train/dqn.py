@@ -74,6 +74,7 @@ from ..core.engine import NUM_ACTIONS
 from ..core.state import EnvState, _key_tensor
 from ..models.actor_critic import shard_layers
 from ..models.dqn import build_q_network
+from ..utils.profiling import count, span
 from .ppo import _seed_of, adam_update, clip_by_global_norm
 from .sharding import MODEL_AXIS, DataParallel
 from .replay import (FrameRingState, ReplayState, _recip_f32, _sum_f32,
@@ -398,10 +399,13 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None,
         return dp.part_mean(ce * weights, L), (ce, q_sel)
 
     loss_fn = c51_loss if cfg.distributional else td_loss
+
+    @span("dqn.actor")
     @torch.no_grad()
     def actor_half(state: DQNState):
         """One env interaction and replay insert: (state, (k_sample,
         k_nlearn, actor metrics))."""
+        count("dqn.actor_steps")
         k_eps, k_act, k_sample, k_nact, k_nlearn, key = threefry.split(
             state.key, 6)
         cur_obs = state.obs
@@ -451,11 +455,13 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None,
                    "epsilon": eps_metric}
         return state, (k_sample, k_nlearn, metrics)
 
+    @span("replay.sample")
     def learner_batch(replay, k_sample, beta):
         """The learner batch over the global ring, drawn alike on every
         rank (the priority grid gathered); each drawn row gathered by the
         rank that owns its env column and assembled on every rank:
         (batch, weights, slot, env), each of L rows."""
+        count("replay.rows_sampled", L)
         slot, env, weights = sample_draw(
             replay, k_sample, L, beta, prioritized=cfg.prioritized,
             slots=cfg.sample_slots, width=B,
@@ -471,11 +477,13 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None,
             weights = torch.ones(L, device=device)
         return batch, weights, slot, env
 
+    @span("dqn.learn")
     def learner_half(state: DQNState, k_sample, k_nlearn,
                      learn_steps: Optional[int] = None):
         """One TD step; the caller gates it on ``learn_starts``.
         ``learn_steps``: the host's copy of ``state.learn_steps`` (read
         from the card when not given), for the target sync."""
+        count("dqn.learner_updates")
         if learn_steps is None:
             learn_steps = int(state.learn_steps)
         replay = state.replay
@@ -505,7 +513,9 @@ def make_train(cfg: DQNConfig, device="cuda", mesh=None,
         params = {n: state.params[n] + updates[n] for n in state.params}
         target = state.target_params
         if (learn_steps + 1) % cfg.target_update_period == 0:
-            target = dict(params)
+            with span("dqn.target_sync"):
+                count("dqn.target_syncs")
+                target = dict(params)
         return state.replace(params=params, target_params=target,
                              opt_state=opt_state, replay=replay,
                              learn_steps=state.learn_steps + 1), learner_m

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import threefry
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -689,6 +690,7 @@ def gather_rows(rs, slot: torch.Tensor, env: torch.Tensor) -> dict:
     return _gather_batch(rs, slot * rs.width + env)
 
 
+@span("replay.priority")
 def update_priority_block(rs, slot: torch.Tensor, env: torch.Tensor, td_abs,
                           alpha: float, eps: float, env_offset: int):
     """``replay_update_priority`` on the rank that holds the env columns

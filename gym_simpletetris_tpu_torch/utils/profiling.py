@@ -19,7 +19,13 @@
   kernels' launches; on the card ``kernel.draw.launches`` equals
   ``engine.draws``), ``engine.draws`` (spawn draws) and ``env.to_host.calls`` /
   ``env.to_host.bytes`` (copies to the host and the bytes of the tensors
-  they took, from their shapes).
+  they took, from their shapes); the DQN trainer's ``dqn.actor_steps``,
+  ``dqn.learner_updates``, ``dqn.target_syncs``, ``replay.rows_sampled``
+  (learner rows drawn) and ``model.noise_draws`` (noisy layers' weight
+  draws), beside its spans ``dqn.actor``, ``dqn.learn``,
+  ``dqn.target_sync``, ``replay.sample`` (a learner batch's draw and
+  gather), ``replay.priority`` (the priority write-back) and
+  ``model.noise``.
 - ``spans_between(lo_ns, hi_ns)``, ``counters()`` and ``reset()`` read and
   clear both.
 - ``trace(dir)``: context manager around ``torch.profiler`` (host ops, and
