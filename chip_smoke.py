@@ -16,7 +16,9 @@ the raster-accumulate with L2 evicted before each launch, its L2-warm time
 beside it), the raster kernels also at 160 and 512 px; 6d holds the
 spawn-draw kernel bitwise against the plain draw at B = 4096 (a key chain
 at env offsets 0 and 2048, the injected-r path) and times both (device us
-by CUDA-graph replay, wrapper us by CUDA events over 200 calls). The main
+by CUDA-graph replay, wrapper us by CUDA events over 200 calls); 6n holds
+the noise kernel bitwise against the plain noisy weights at the flagship
+Rainbow's three noisy layers and times it likewise. The main
 path must launch the draw kernel once for every spawn draw, and every
 plain-path run below takes the plain draw too. Then the trainer
 path: the lookahead heuristic (kernel A at 7 * B), the greedy evaluation of
@@ -558,7 +560,8 @@ def phase_golden():
 _COUNTERS = {"step": "kernel.step.launches",
              "raster": "kernel.raster.launches",
              "raster_accumulate": "kernel.raster_acc.launches",
-             "draw": "kernel.draw.launches"}
+             "draw": "kernel.draw.launches",
+             "noise": "kernel.noise.launches"}
 
 
 def _reset_counters() -> None:
@@ -570,8 +573,8 @@ def phase_main_path(board: dict, label: str):
     """The main path on ``board`` (EnvConfig width / height): reset, 64
     steps and a T-step rollout for each obs type, the rollout held to the
     same steps taken one at a time. The kernel counts are set to 0 just
-    before and read just after; each kernel must have launched, the draw
-    kernel once for every spawn draw."""
+    before and read just after; each kernel of the env's path must have
+    launched, the draw kernel once for every spawn draw."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
@@ -619,7 +622,7 @@ def phase_main_path(board: dict, label: str):
     torch.cuda.synchronize()
     launches = _launches()
     for k, n in launches.items():
-        if n <= 0:
+        if n <= 0 and k != "noise":      # the env path has no noisy layer
             raise PhaseError(f"kernel {k} was not launched on the main path "
                              f"{board or 'default'}")
     from gym_simpletetris_tpu_torch.utils import profiling
@@ -765,6 +768,61 @@ def phase_draw_kernel():
     return got
 
 
+def phase_noise_kernel():
+    """6n: the noise kernel (``csrc/noise.cu``) against the plain noisy
+    weights (``NoisyDense.noisy_weights_plain``) for the flagship Rainbow's
+    three noisy layers (dense 3136 -> 512, value 512 -> 51, advantage 512
+    -> 357), bitwise, on 16 keys. Then, for information, each layer's
+    device us by CUDA-graph replay (L2 evicted, and warm), its wrapper us
+    by CUDA events over 200 calls, and the plain version's wrapper us.
+    Returns the readings by layer."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch.core.state import _key_tensor
+    from gym_simpletetris_tpu_torch.models import dqn
+    from gym_simpletetris_tpu_torch.ops import cuda_noise
+    from gym_simpletetris_tpu_torch.utils import kernel_timing as kt
+    dev = torch.device("cuda")
+    net = dqn.build_q_network("grayscale", (84, 84, 4), dueling=True,
+                              num_atoms=51, noisy=True)
+    net.reset_parameters(torch.Generator().manual_seed(19))
+    net = net.to(dev)
+    layers = [m for m in net.modules() if isinstance(m, dqn.NoisyDense)]
+    rng = np.random.RandomState(19)
+    keys = [_key_tensor(w.astype(np.uint32), dev)
+            for w in rng.randint(0, 2 ** 32, (16, 2), dtype=np.uint64)]
+    flush = kt.l2_flush()
+    got = {}
+    for m in layers:
+        with torch.no_grad():
+            for k in keys:
+                a, b = m.noisy_weights(k), m.noisy_weights_plain(k)
+                if not all(torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32))
+                           for x, y in zip(a, b)):
+                    raise PhaseError(f"noise kernel != plain noise for "
+                                     f"{m.path} under key {k.tolist()}")
+            k = keys[0]
+            launch = lambda: cuda_noise._launch(
+                k, m.fold, m.weight_mu, m.weight_sigma, m.bias_mu,
+                m.bias_sigma, 0)
+            rows, in_f = m.weight_mu.shape
+            got["/".join(m.path)] = r = dict(
+                shape=[in_f, m.features],
+                bound_us=kt.bound_us(kt.noise_bytes(in_f, m.features, rows)),
+                device_us=kt.device_us(launch, flush=flush),
+                l2_warm_device_us=kt.device_us(launch),
+                wrapper_us=1e3 * kt.sync_ms(lambda: m.noisy_weights(k), 200),
+                plain_wrapper_us=1e3 * kt.sync_ms(
+                    lambda: m.noisy_weights_plain(k), 20))
+        log(f"phase 6n noise kernel {'/'.join(m.path)} {in_f}->{m.features}: "
+            f"{len(keys)} keys equal to the plain noise; device "
+            f"{r['device_us']:.2f} us L2 evicted ({r['l2_warm_device_us']:.2f}"
+            f" warm), bound {r['bound_us']:.2f} us, wrapper "
+            f"{r['wrapper_us']:.2f} us (plain {r['plain_wrapper_us']:.1f} us)")
+    return got
+
+
 # ------------------------------------------------------------ trainer path
 
 TRAIN_B = 512
@@ -813,23 +871,26 @@ def _launches() -> dict:
 @contextlib.contextmanager
 def _plain_path():
     """The trainer path on the plain versions, for a comparison run: the env
-    step and raster of ``api.env``, the heuristic's lookahead step and the
-    engine's spawn draw."""
+    step and raster of ``api.env``, the heuristic's lookahead step, the
+    engine's spawn draw and the noisy layers' noise."""
     from gym_simpletetris_tpu_torch.api import env as api_env
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.models import heuristic
+    from gym_simpletetris_tpu_torch.models.dqn import NoisyDense
     from gym_simpletetris_tpu_torch.ops import raster
     saved = (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
-             api_env.raster_accumulate, E.spawn_draw)
+             api_env.raster_accumulate, E.spawn_draw, NoisyDense.noisy_weights)
     E.engine_step = heuristic.engine_step = E.engine_step_plain
     api_env.rasterize_rows = raster.rasterize_rows_plain
     api_env.raster_accumulate = raster.raster_accumulate_plain
     E.spawn_draw = E.spawn_draw_plain
+    NoisyDense.noisy_weights = NoisyDense.noisy_weights_plain
     try:
         yield
     finally:
         (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
-         api_env.raster_accumulate, E.spawn_draw) = saved
+         api_env.raster_accumulate, E.spawn_draw,
+         NoisyDense.noisy_weights) = saved
 
 
 def _play(cfg, act, steps):
@@ -2887,6 +2948,8 @@ def main() -> int:
         took("6-6w")
         draw = phase_draw_kernel()
         took("6d")
+        noise = phase_noise_kernel()
+        took("6n")
         trainer_err = phase_trainer_path()
         took("7a-7e")
         import tempfile
@@ -2951,6 +3014,13 @@ def main() -> int:
         device_us=draw["device_us"],
         plain_device_us=draw["plain_device_us"], bound_by="launch",
         library_ms=None))
+    for layer, r in noise.items():
+        kernels.append(dict(
+            name="noise:" + layer, route="cuda", source=pkg + "noise.cu",
+            replaces=None, launches=total["noise"], max_abs_err=0.0,
+            ms=r["wrapper_us"] / 1e3, plain_ms=r["plain_wrapper_us"] / 1e3,
+            bound_ms=r["bound_us"] / 1e3, bound_by="bytes", library_ms=None,
+            **r))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

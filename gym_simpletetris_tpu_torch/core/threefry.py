@@ -14,7 +14,7 @@ Bit-for-bit the stream of ``jax.random`` with threefry keys and
   bits, the float functions under them (``log_f32``, ``log1p_f32``,
   ``erf_inv_f32``, ``sqrt_f32``) as XLA's CPU backend computes them;
 - ``flax_rng(key, *path, counter)`` is the key flax's ``make_rng`` derives
-  for a module.
+  for a module, ``fold_in`` of ``flax_fold(*path, counter)``.
 
 Block draws: ``random_bits`` and every draw built on it take an optional
 ``block=(axis, start, stop)`` of the global ``shape`` and return exactly that
@@ -290,20 +290,26 @@ def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((((a >> 16) * b) & _M32) << 16) + (a & 0xFFFF) * b & _M32
 
 
-def flax_rng(key: torch.Tensor, *path) -> torch.Tensor:
-    """The key flax's ``Scope.make_rng`` gives a module: ``fold_in`` of the
-    first 4 bytes (big-endian) of the SHA-1 of the module path's names and
-    the rng counter, in that order, with no separator (flax's default,
-    ``flax_fix_rng_separator`` off). ``flax_rng(k, "dense0", 1)`` is the
-    first ``make_rng("noise")`` of the module ``dense0`` under
-    ``apply(..., rngs={"noise": k})``."""
+def flax_fold(*path) -> int:
+    """The data ``flax_rng`` folds into the key for ``path``: the first 4
+    bytes (big-endian) of the SHA-1 of the module path's names and the rng
+    counter, in that order, with no separator (flax's default,
+    ``flax_fix_rng_separator`` off)."""
     m = hashlib.sha1()
     for x in path:
         if isinstance(x, str):
             m.update(x.encode("utf-8"))
         else:
             m.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, "big"))
-    return fold_in(key, int.from_bytes(m.digest()[:4], "big"))
+    return int.from_bytes(m.digest()[:4], "big")
+
+
+def flax_rng(key: torch.Tensor, *path) -> torch.Tensor:
+    """The key flax's ``Scope.make_rng`` gives a module: ``fold_in`` of
+    ``flax_fold(*path)``. ``flax_rng(k, "dense0", 1)`` is the first
+    ``make_rng("noise")`` of the module ``dense0`` under ``apply(...,
+    rngs={"noise": k})``."""
+    return fold_in(key, flax_fold(*path))
 
 
 def gumbel(key: torch.Tensor, shape, block=None) -> torch.Tensor:

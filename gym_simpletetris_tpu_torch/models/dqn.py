@@ -10,7 +10,10 @@
 - ``DuelingHead``: V + A - mean_a A; ``C51Head``: categorical logits,
   dueling per atom;
 - ``NoisyDense``: the factorised-Gaussian noisy linear layer. ``noisy=True``
-  swaps every fully connected layer for it (the convs stay plain).
+  swaps every fully connected layer for it (the convs stay plain). On the
+  card its noisy weights are one launch of the noise kernel
+  (``ops/cuda_noise.py``), bitwise the plain version, which CPU
+  parameters take.
 
 Each network's ``forward(x, noise_key=None)`` takes the noise key
 explicitly, as a threefry key: ``noise_key`` is the key flax's
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 
 from ..core import threefry
 from ..core.engine import NUM_ACTIONS
+from ..ops import cuda_noise
 from ..utils.profiling import count, span
 from .actor_critic import Conv, Dense, Layer, linear
 
@@ -71,6 +75,8 @@ class NoisyDense(Layer):
                  path: Tuple[str, ...], sigma0: float = 0.5):
         super().__init__(features, dtype)
         self.path = tuple(path)
+        # flax_rng's fold_in data for this layer's noise key, hashed once
+        self.fold = threefry.flax_fold(*self.path, 1)
         self.sigma0 = sigma0
         self.weight_mu = nn.Parameter(torch.zeros(features, features_in))
         self.bias_mu = nn.Parameter(torch.zeros(features))
@@ -91,13 +97,26 @@ class NoisyDense(Layer):
     @span("model.noise")
     def noisy_weights(self, noise_key: torch.Tensor):
         """(weight, bias) under the noise drawn from ``noise_key`` (the key
-        the whole network was given)."""
+        the whole network was given): one launch of the noise kernel
+        (``ops/cuda_noise.py``) for CUDA parameters, the plain version for
+        the rest."""
         count("model.noise_draws")
+        if not self.weight_mu.is_cuda:
+            return self.noisy_weights_plain(noise_key)
+        at = self.shard.rank * self.weight_mu.shape[0] \
+            if self.shard is not None else 0
+        return cuda_noise.noisy_weights(
+            noise_key, self.fold, self.weight_mu, self.weight_sigma,
+            self.bias_mu, self.bias_sigma, at)
+
+    def noisy_weights_plain(self, noise_key: torch.Tensor):
+        """``noisy_weights`` in plain torch on the threefry of
+        ``core/threefry.py``: the noise kernel's oracle."""
         rows, in_f = self.weight_mu.shape
+        at = self.shard.rank * rows if self.shard is not None else 0
         ki, ko = threefry.split(threefry.flax_rng(noise_key, *self.path, 1))
         e_in = _signed_sqrt(threefry.normal(ki, (in_f, 1)))
         e_out = _signed_sqrt(threefry.normal(ko, (1, self.features)))
-        at = self.shard.rank * rows if self.shard is not None else 0
         e_rows = e_out[:, at:at + rows]
         w = _fma_f32(self.weight_sigma, (e_in * e_rows).T, self.weight_mu)
         b = _fma_f32(self.bias_sigma, e_out[0], self.bias_mu)

@@ -4,8 +4,9 @@ At first use, ``nvcc`` compiles every source in ``csrc/`` for ``sm_90a``, one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ``ctypes`` loads. The
 library goes into ``_build/`` inside this package (listed in ``.gitignore``),
-named by a hash of the sources and the flags, so a changed source builds anew
-and an unchanged one is loaded as it is. A build holds an exclusive file
+named by a hash of the sources, their headers (``csrc/*.cuh``) and the
+flags, so a changed source or header builds anew and an unchanged one is
+loaded as it is. A build holds an exclusive file
 lock on ``_build/.lock``, so processes that start at once (the ranks of a
 data-parallel run) build the library once and the others load it; the
 library appears by an atomic rename, never half written. A missing ``nvcc``
@@ -55,7 +56,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):    # the sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtetris_kernels_{h.hexdigest()[:16]}.so"
@@ -134,4 +135,7 @@ def load_library() -> ctypes.CDLL:
     lib.tetris_raster_launch.restype = i
     lib.tetris_draw_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp]
     lib.tetris_draw_launch.restype = i
+    lib.tetris_noise_launch.argtypes = [vp, ctypes.c_uint, vp, vp, vp, vp, vp,
+                                        vp, vp, i, i, i, i, i, vp]
+    lib.tetris_noise_launch.restype = i
     return lib

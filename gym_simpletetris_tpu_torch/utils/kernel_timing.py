@@ -4,9 +4,9 @@
   of a CUDA graph of launches, so no host time falls between them;
 - ``sync_ms``: one wrapper call as its caller sees it (Python and ctypes
   included), by CUDA events over back-to-back calls;
-- ``step_bytes`` / ``raster_bytes``: the bytes kernel A and kernels B, C
-  must move; ``bound_us`` turns bytes into the least time at the H100's HBM
-  rate;
+- ``step_bytes`` / ``raster_bytes`` / ``noise_bytes``: the bytes kernel
+  A, kernels B, C and the noise kernel must move; ``bound_us`` turns bytes
+  into the least time at the H100's HBM rate;
 - ``step_device_times``: kernel A at one state, for two action mixes, with
   its bound and a plain-stream yardstick; ``prefilled_state``,
   ``step_inputs`` and ``mix_actions`` make the states and actions it is
@@ -94,6 +94,14 @@ def l2_flush():
 def bound_us(nbytes: int) -> float:
     """The least time to move ``nbytes`` at the HBM rate, in microseconds."""
     return nbytes / HBM_BYTES_PER_S * 1e6
+
+
+def noise_bytes(in_f: int, features: int, rows: int) -> int:
+    """The noise kernel's bytes for one layer (rows of its features):
+    mu and sigma read and the noisy weight written (12 * rows * in_f), the
+    biases read and written (12 * features), the noise vectors written
+    (4 * (in_f + features)) and the key read (8)."""
+    return 12 * rows * in_f + 16 * features + 4 * in_f + 8
 
 
 def step_bytes(cfg, B: int) -> int:

@@ -15,11 +15,13 @@
   holds exactly what it held without them.
 - ``count(name, n=1)``: a counter, always on. The port's counters:
   ``kernel.step.launches``, ``kernel.raster.launches``,
-  ``kernel.raster_acc.launches``, ``kernel.draw.launches`` (its CUDA
-  kernels' launches; on the card ``kernel.draw.launches`` equals
-  ``engine.draws``), ``engine.draws`` (spawn draws) and ``env.to_host.calls`` /
-  ``env.to_host.bytes`` (copies to the host and the bytes of the tensors
-  they took, from their shapes); the DQN trainer's ``dqn.actor_steps``,
+  ``kernel.raster_acc.launches``, ``kernel.draw.launches``,
+  ``kernel.noise.launches`` (its CUDA kernels' launches; on the card
+  ``kernel.draw.launches`` equals ``engine.draws`` and
+  ``kernel.noise.launches`` equals ``model.noise_draws``, one launch a
+  noisy layer's draw), ``engine.draws`` (spawn draws) and
+  ``env.to_host.calls`` / ``env.to_host.bytes`` (copies to the host and
+  the bytes of the tensors they took, from their shapes); the DQN trainer's ``dqn.actor_steps``,
   ``dqn.learner_updates``, ``dqn.target_syncs``, ``replay.rows_sampled``
   (learner rows drawn) and ``model.noise_draws`` (noisy layers' weight
   draws), beside its spans ``dqn.actor``, ``dqn.learn``,

@@ -60,6 +60,20 @@ def test_bound_is_bytes_at_the_hbm_rate():
         pytest.approx(17.3526, abs=1e-4)
 
 
+@pytest.mark.parametrize("in_f,features,rows", [(3136, 512, 512),
+                                                (512, 357, 357), (512, 51, 51),
+                                                (3136, 512, 256)])
+def test_noise_bytes_are_its_operands(in_f, features, rows):
+    """The noise kernel reads mu and sigma of its rows and the biases and
+    the key, and writes the noisy weight, the bias and the two noise
+    vectors (csrc/noise.cu)."""
+    f32 = lambda *s: torch.zeros(s)
+    reads = (f32(rows, in_f), f32(rows, in_f), f32(features), f32(features),
+             torch.zeros(2, dtype=torch.int32))
+    writes = (f32(rows, in_f), f32(features), f32(in_f + features))
+    assert kt.noise_bytes(in_f, features, rows) == _nbytes(*reads, *writes)
+
+
 @pytest.mark.parametrize("B,mb,us", [(4096, 1.626, 0.4854),
                                      (16384, 6.505, 1.9416),
                                      (65536, 26.018, 7.7665)])

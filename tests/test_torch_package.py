@@ -211,7 +211,19 @@ def test_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libtetris_kernels_") and path.suffix == ".so"
     assert sorted(p.name for p in _build._sources()) == [
-        "draw.cu", "raster.cu", "step.cu"]
+        "draw.cu", "noise.cu", "raster.cu", "step.cu"]
+
+
+def test_library_name_follows_the_headers(tmp_path, monkeypatch):
+    """A changed header (``csrc/*.cuh``, which the sources include) names
+    another library, so it builds anew."""
+    for src in _build.CSRC_DIR.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "threefry.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build.library_path() != before
 
 
 def test_cpu_step_never_launches():
