@@ -84,13 +84,36 @@ def _select_done(done: torch.Tensor, new: EnvState, old: EnvState) -> EnvState:
 
 @span("env.reset_mask")
 def apply_reset_mask(cfg: EnvConfig, state: EnvState, emitted: torch.Tensor,
-                     mask: torch.Tensor):
+                     mask: torch.Tensor,
+                     injected_r: Optional[torch.Tensor] = None,
+                     cleared_from: Optional[EnvState] = None):
     """Episode-reset the envs selected by ``mask`` (bool[B]): their state is
     cleared (carry-over semantics) and their emitted board becomes the empty
-    reset board."""
-    cleared_state, cleared_rows = E.engine_clear(cfg, state)
+    reset board; the key is the clear's. Every auto-reset of the port goes
+    through here. ``injected_r`` replaces the clear's spawn draws.
+    ``cleared_from`` (default ``state``) is the state the selected envs are
+    cleared from: the gymnasium adapter clears its pending envs from their
+    pre-step state and keeps the stepped state of the others."""
+    cleared_state, cleared_rows = E.engine_clear(
+        cfg, state if cleared_from is None else cleared_from,
+        injected_r=injected_r)
     new_state = _select_done(mask, cleared_state, state)
     return new_state, torch.where(mask, cleared_rows, emitted)
+
+
+def _step_and_reset(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
+                    injected_r: Optional[torch.Tensor] = None):
+    """``engine_step``, then with ``cfg.auto_reset`` the reset of the envs
+    that died: (state, emitted rows, reward, done, the stepped
+    ``lines_cleared`` before the reset zeroes it). The stepped state is
+    not returned, so it is freed before the caller builds its
+    observation."""
+    out = E.engine_step(cfg, state, action, injected_r=injected_r)
+    new_state, emitted = out.state, out.emitted_rows
+    if cfg.auto_reset:
+        new_state, emitted = apply_reset_mask(cfg, new_state, emitted,
+                                              out.done)
+    return new_state, emitted, out.reward, out.done, out.state.lines_cleared
 
 
 def reset_fn(cfg: EnvConfig, batch_size: int, key,
@@ -119,14 +142,11 @@ def step_fn(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     """One batched transition: (obs, state, reward, done, info). With
     ``cfg.auto_reset`` the envs that died are cleared in the same call and
     observe the empty board; reward and done report the terminal step."""
-    out = E.engine_step(cfg, state, action, injected_r=injected_r)
-    new_state, emitted = out.state, out.emitted_rows
-    if cfg.auto_reset:
-        new_state, emitted = apply_reset_mask(cfg, new_state, emitted, out.done)
+    new_state, emitted, reward, done, lines = _step_and_reset(
+        cfg, state, action, injected_r)
     info = make_info(new_state)
-    # lines cleared this step, taken before the reset mask zeroes the counter
-    info["lines_delta"] = out.state.lines_cleared - state.lines_cleared
-    return build_observation(cfg, emitted), new_state, out.reward, out.done, info
+    info["lines_delta"] = lines - state.lines_cleared
+    return build_observation(cfg, emitted), new_state, reward, done, info
 
 
 def make_info(state: EnvState) -> dict:
@@ -165,9 +185,7 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
             if with_obs:
                 acc += obs
             return state, reward, done
-        state, emitted, reward, done = E.engine_step(cfg, state, a)
-        if cfg.auto_reset:
-            state, emitted = apply_reset_mask(cfg, state, emitted, done)
+        state, emitted, reward, done = _step_and_reset(cfg, state, a)[:4]
         if with_obs and cfg.obs_type != "ram":
             raster_accumulate(cfg, emitted, acc, OBS_SIZE)
         elif with_obs:

@@ -102,13 +102,12 @@ def fused_step(cfg: EnvConfig, state, action: torch.Tensor,
     obs, reward, terminated, info).
 
     The stepped results of pending envs are discarded wholesale by
-    ``apply_reset_mask`` (their reset comes from the PRE-step state), so
+    ``apply_reset_mask``, which clears them from the PRE-step state, so
     the ignored action cannot leak, including into the deaths counter or
     RNG-visible state."""
     out = E.engine_step(cfg, state, action)
     new_state, emitted = api_env.apply_reset_mask(
-        cfg, api_env._select_done(pending, state, out.state),
-        out.emitted_rows, pending)
+        cfg, out.state, out.emitted_rows, pending, cleared_from=state)
     obs = api_env.build_observation(cfg, emitted)
     reward = torch.where(pending, 0.0, out.reward)
     term = torch.where(pending, False, out.done)

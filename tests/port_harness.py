@@ -1,15 +1,22 @@
 """Bridges between the JAX package and its PyTorch port for the port's tests:
-engine states, and flax parameter trees against the port's state_dicts."""
+engine states, and flax parameter trees against the port's state_dicts.
+Importing it puts torch on one CPU thread. It imports JAX only where a
+bridge needs it, so the card's test files, on a machine without JAX, import
+it too."""
 
-import jax
 import numpy as np
-import pytest
 import torch
 
 from gym_simpletetris_tpu_torch.core.state import (
     FIELDS, state_from_numpy, state_to_numpy)
 from gym_simpletetris_tpu_torch.models.actor_critic import (
     _FLAX_LEAVES, params_from_flax)
+
+# torch on one CPU thread in every port test (each tests/test_torch_*.py
+# imports this module): the suite runs in several worker processes on one
+# host, and each one's default of an intra-op thread per core oversubscribes
+# it.
+torch.set_num_threads(1)
 
 
 def to_port(js, device="cpu"):
@@ -29,12 +36,14 @@ def assert_state_equal(js, ts, msg=""):
 def flax_to_state_dict(tree) -> dict:
     """A flax parameter tree (jax or numpy leaves) -> the port's
     state_dict (``models.actor_critic.params_from_flax``)."""
+    import jax
     return params_from_flax(jax.tree.map(np.asarray, tree))
 
 
 def state_dict_to_flax(sd: dict, like) -> dict:
     """The port's state_dict -> a flax parameter tree shaped like ``like``
     (a flax tree of the same network), as numpy float32."""
+    import jax
     want = flax_to_state_dict(like)
 
     def walk(node, path):
@@ -63,15 +72,3 @@ def assert_bitwise(got: torch.Tensor, want, msg=""):
         g, want = g.view(np.int32), want.view(np.int32)
     np.testing.assert_array_equal(g, want, err_msg=msg)
 
-
-@pytest.fixture
-def torch_one_thread():
-    """torch on one CPU thread for the test: the suite runs in several
-    worker processes at once, and each one's default of a thread per core
-    oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)

@@ -15,8 +15,8 @@ from gym_simpletetris_tpu_torch.api import engine as port_engine
 from gym_simpletetris_tpu_torch.api import primitives as port_prim
 from gym_simpletetris_tpu_torch.api.gym_compat import board_image, human_image
 from gym_simpletetris_tpu_torch.ops.bitops import unpack_board
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
-from port_harness import torch_one_thread  # noqa: F401
 
 _PROPS = ("board", "anchor", "shape", "shape_name", "shape_counts", "time",
           "score", "holes", "lines_cleared", "piece_height", "n_deaths",
@@ -29,7 +29,7 @@ def _same_props(j, p, msg=""):
             np.array_equal(p.board, j.board), (msg, f)
 
 
-def test_engine_lockstep_with_jax(torch_one_thread):
+def test_engine_lockstep_with_jax():
     args = (9, 14, 1, True, True, False, True, True, False, True, False)
     j = jax_engine.TetrisEngine(*args, seed=5)
     p = port_engine.TetrisEngine(*args, seed=5, device="cpu")
@@ -59,7 +59,7 @@ def test_engine_lockstep_with_jax(torch_one_thread):
     assert dones > 0
 
 
-def test_engine_before_clear_and_board_setter(torch_one_thread):
+def test_engine_before_clear_and_board_setter():
     j = jax_engine.TetrisEngine(10, 20, seed=1)
     p = port_engine.TetrisEngine(10, 20, seed=1, device="cpu")
     _same_props(j, p, "before clear")
@@ -150,7 +150,7 @@ def test_primitives_against_jax():
 
 
 @pytest.mark.parametrize("wh", [(10, 20), (7, 13), (16, 5), (32, 20)])
-def test_human_image_is_the_transposed_raster(wh, torch_one_thread):
+def test_human_image_is_the_transposed_raster(wh):
     """The (W, H) board's raster (what the reference's human render draws)
     equals the transpose of the (H, W) raster that the raster kernel draws,
     at 512 and at 160 px, on non-square boards."""

@@ -16,6 +16,7 @@ from gym_simpletetris_tpu_torch.core import engine as E
 from gym_simpletetris_tpu_torch.core.state import FIELDS, init_state
 from gym_simpletetris_tpu_torch.ops import cuda_raster, cuda_step, raster
 from gym_simpletetris_tpu_torch.utils.profiling import counters
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 pytestmark = pytest.mark.cuda
 

@@ -29,9 +29,6 @@ from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.train import dqn
 from port_harness import (assert_bitwise, assert_state_equal,
                           flax_to_state_dict)
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CONFIGS = {
     "a_ram_default": dict(),

@@ -34,9 +34,6 @@ from gym_simpletetris_tpu_torch.models import dqn as models
 from gym_simpletetris_tpu_torch.train import dqn
 from port_harness import flax_to_state_dict
 from test_torch_dqn import _pair, _run_to_first_learn
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 @pytest.mark.parametrize("name", ["a_ram_default", "d_gray_rainbow"])

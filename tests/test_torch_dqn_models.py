@@ -36,9 +36,6 @@ from gym_simpletetris_tpu.models import dqn as jax_dqn
 from gym_simpletetris_tpu_torch.core.state import _key_tensor
 from gym_simpletetris_tpu_torch.models import dqn
 from port_harness import flax_to_state_dict, state_dict_to_flax
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 HEADS = list(itertools.product([False, True], [0, 51]))   # dueling, atoms
 

@@ -18,6 +18,7 @@ from gym_simpletetris_tpu_torch.core import threefry
 from gym_simpletetris_tpu_torch.core.state import _key_tensor, init_state
 from gym_simpletetris_tpu_torch.ops import cuda_draw
 from gym_simpletetris_tpu_torch.utils.profiling import counters
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 pytestmark = pytest.mark.cuda
 

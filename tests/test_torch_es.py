@@ -39,9 +39,6 @@ from gym_simpletetris_tpu_torch.train import es, evaluate
 from gym_simpletetris_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                          save_checkpoint)
 from port_harness import assert_bitwise, flax_to_state_dict
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 EKW = dict(auto_reset=True, reward_step=True, penalise_holes=True, width=6,
            height=8)

@@ -21,6 +21,7 @@ from gym_simpletetris_tpu.utils.checkpoint import restore_checkpoint as jax_rest
 from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
 from gym_simpletetris_tpu_torch.train import evaluate
 from gym_simpletetris_tpu_torch.utils.checkpoint import load_flax_params
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 CKPT = "artifacts/ppo_lineclear_ckpt"
 NPZ = "artifacts/ppo_lineclear_params.npz"

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                             "examples")

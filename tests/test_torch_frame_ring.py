@@ -36,10 +36,7 @@ from gym_simpletetris_tpu_torch.core.state import _key_tensor
 from gym_simpletetris_tpu_torch.train import dqn
 from gym_simpletetris_tpu_torch.train import replay as tr
 from port_harness import assert_bitwise, assert_state_equal
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
 from test_torch_dqn import _init_pair
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 RING = ("frame", "action", "reward", "done", "priority", "max_p", "ptr",
         "filled_slots")

@@ -10,10 +10,8 @@ float sums run in torch's order).
 import numpy as np
 import pytest
 
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
+import port_harness  # noqa: F401 (torch on one CPU thread)
 from test_torch_dqn import _run_to_first_learn
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 @pytest.mark.parametrize("name,over", [

@@ -7,6 +7,7 @@ families on a world of 2 processes at the (data, model) shapes (2, 1) and
 import numpy as np
 
 from gym_simpletetris_tpu_torch import graft_entry
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 
 def test_entry_forward_on_the_cpu():

@@ -10,8 +10,8 @@ from gym_simpletetris_tpu.api.gym_compat import TetrisEnv as JaxEnv
 from gym_simpletetris_tpu.ops.raster import rasterize
 from gym_simpletetris_tpu_torch.api.gym_compat import TetrisEnv, human_image
 from gym_simpletetris_tpu_torch.ops.raster import rasterize_host
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
-from port_harness import torch_one_thread  # noqa: F401
 
 LOCKSTEP = {
     "ram": dict(obs_type="ram", reward_step=True, penalise_holes=True),
@@ -41,7 +41,7 @@ def _same(j, p, msg):
 
 
 @pytest.mark.parametrize("name", sorted(LOCKSTEP))
-def test_shim_lockstep_with_jax(name, torch_one_thread):
+def test_shim_lockstep_with_jax(name):
     """Threefry draws from the seed for the first half, injected draws for
     the second, episodes reset on done; every output bitwise."""
     kw = LOCKSTEP[name]
@@ -129,7 +129,7 @@ def test_renders(pair, monkeypatch):
         p.render("ansi")
 
 
-def test_engine_view_seed_and_no_op_actions(torch_one_thread):
+def test_engine_view_seed_and_no_op_actions():
     j = JaxEnv(obs_type="ram", seed=11, lock_delay=1)
     p = TetrisEnv(obs_type="ram", seed=11, lock_delay=1, device="cpu")
     assert repr(p) == "TetrisEnv(10x20, unreset)"

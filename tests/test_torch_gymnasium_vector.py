@@ -11,8 +11,8 @@ from gym_simpletetris_tpu.api.registry import (
 from gym_simpletetris_tpu_torch.api.gymnasium_vector import _TorchVectorCore
 from gym_simpletetris_tpu_torch.api.registry import make_gymnasium_vector_env
 from gym_simpletetris_tpu_torch.native import native_available
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
-from port_harness import torch_one_thread  # noqa: F401
 
 gymnasium = pytest.importorskip("gymnasium")
 
@@ -34,7 +34,7 @@ def _same(got, want, msg):
 
 @pytest.mark.parametrize("case", range(len(CASES)),
                          ids=[f"{c[0]}-{c[2]['obs_type']}" for c in CASES])
-def test_adapter_against_jax(case, torch_one_thread):
+def test_adapter_against_jax(case):
     backend, jax_backend, kw, n, steps = CASES[case]
     p = make_gymnasium_vector_env(n, backend=backend, seed=3, **kw)
     j = jax_make(n, backend=jax_backend, seed=3, **kw)
@@ -60,7 +60,7 @@ def test_adapter_against_jax(case, torch_one_thread):
     p.close()
 
 
-def test_record_episode_statistics_accepts_it(torch_one_thread):
+def test_record_episode_statistics_accepts_it():
     from gymnasium.wrappers.vector import RecordEpisodeStatistics
     env = RecordEpisodeStatistics(make_gymnasium_vector_env(
         4, backend="cpu", obs_type="ram", reward_step=True, seed=4))
@@ -74,7 +74,7 @@ def test_record_episode_statistics_accepts_it(torch_one_thread):
     assert finished > 0
 
 
-def test_reset_without_seed_gives_fresh_episodes(torch_one_thread):
+def test_reset_without_seed_gives_fresh_episodes():
     env = make_gymnasium_vector_env(4, backend="cpu", obs_type="ram", seed=1)
     env.reset()
     tr1 = [env.step(np.full(4, 2))[0].copy() for _ in range(8)]

@@ -12,6 +12,7 @@ from gym_simpletetris_tpu_torch.core.state import FIELDS, init_state
 from gym_simpletetris_tpu_torch.ops import cuda_raster
 from gym_simpletetris_tpu_torch.ops.raster import device_axis_maps
 from gym_simpletetris_tpu_torch.utils import kernel_timing as kt
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 CPU = torch.device("cpu")
 

@@ -23,6 +23,7 @@ from gym_simpletetris_tpu.parallel import mesh as JM
 from gym_simpletetris_tpu_torch.core.state import FIELDS
 from torch_dist_harness import (ENV_B, ENV_CASES, ENV_STEPS, ENV_T,
                                 run_world)
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 WORLDS = (2, 4)
 

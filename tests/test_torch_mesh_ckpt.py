@@ -21,11 +21,11 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import torch_dist_harness as H
 from gym_simpletetris_tpu_torch.train import dqn
 from gym_simpletetris_tpu_torch.utils.checkpoint import restore_checkpoint
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 WORLD = 2
 TOL = dict(rtol=2e-4, atol=2e-6)
@@ -36,22 +36,17 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_ckpt")
     for d in ("world2", "unsharded"):
         os.makedirs(tmp / d)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        world = H.run_world(WORLD, "ring_ckpt_job", tmp,
-                            path=str(tmp / "world2" / "dqn.pt"),
-                            path0=str(tmp / "world2" / "init.pt"))
-        ring = H.ring_run(None)
-        cont, _ = H.ckpt_run(None, str(tmp / "unsharded" / "dqn.pt"),
-                             str(tmp / "unsharded" / "init.pt"))
-        # the world-2 file restored at world 1
-        cfg = dqn.DQNConfig(env=H.env_cfg(), **H.CKPT_KW)
-        _, step_fn, _, _ = dqn.make_train(cfg, "cpu")
-        one = H.continue_run(step_fn, restore_checkpoint(
-            str(tmp / "world2" / "dqn.pt"), "cpu"))
-    finally:
-        torch.set_num_threads(threads)
+    world = H.run_world(WORLD, "ring_ckpt_job", tmp,
+                        path=str(tmp / "world2" / "dqn.pt"),
+                        path0=str(tmp / "world2" / "init.pt"))
+    ring = H.ring_run(None)
+    cont, _ = H.ckpt_run(None, str(tmp / "unsharded" / "dqn.pt"),
+                         str(tmp / "unsharded" / "init.pt"))
+    # the world-2 file restored at world 1
+    cfg = dqn.DQNConfig(env=H.env_cfg(), **H.CKPT_KW)
+    _, step_fn, _, _ = dqn.make_train(cfg, "cpu")
+    one = H.continue_run(step_fn, restore_checkpoint(
+        str(tmp / "world2" / "dqn.pt"), "cpu"))
     return tmp, world, ring, cont, one
 
 

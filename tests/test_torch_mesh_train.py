@@ -29,7 +29,6 @@ A mesh with a model axis is ``test_torch_tensor_parallel.py``'s.
 import jax
 import numpy as np
 import pytest
-import torch
 
 from gym_simpletetris_tpu import EnvConfig as JaxConfig
 from gym_simpletetris_tpu.train import dqn as jax_dqn
@@ -55,12 +54,7 @@ def runs(tmp_path_factory):
     """JAX's unsharded runs, the port's unsharded runs and the world of 4,
     from the same parameters."""
     tmp = tmp_path_factory.mktemp("mesh_train")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _runs(tmp)
-    finally:
-        torch.set_num_threads(threads)
+    return _runs(tmp)
 
 
 def _runs(tmp):

@@ -33,6 +33,7 @@ from gym_simpletetris_tpu_torch.models import heuristic
 from gym_simpletetris_tpu_torch.models.actor_critic import (
     ActorCritic, params_from_flax)
 from gym_simpletetris_tpu_torch.utils.checkpoint import load_flax_params
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 NPZ = "artifacts/ppo_lineclear_params.npz"
 DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),

@@ -13,8 +13,8 @@ from gym_simpletetris_tpu_torch import EnvConfig, TetrisEnv, TetrisVectorEnv
 from gym_simpletetris_tpu_torch import native
 from gym_simpletetris_tpu_torch.native import (NativeBuildError,
                                                native_available)
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
-from port_harness import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 needs_gxx = pytest.mark.skipif(not native_available(),
@@ -57,7 +57,7 @@ def _draw(info, rng):
     dict(obs_type="rgb", width=7, height=11, high_scoring=True,
          penalise_height=True),
 ], ids=["ram", "grayscale", "rgb"])
-def test_native_env_against_torch(kw, torch_one_thread):
+def test_native_env_against_torch(kw):
     from gym_simpletetris_tpu_torch.api.native_env import NativeTetrisEnv
     nat = NativeTetrisEnv(**kw)
     env = TetrisEnv(device="cpu", **kw)
@@ -91,7 +91,7 @@ def test_native_env_against_torch(kw, torch_one_thread):
 
 @needs_gxx
 @pytest.mark.parametrize("obs_type", ["ram", "grayscale"])
-def test_native_vector_env_against_torch(obs_type, torch_one_thread):
+def test_native_vector_env_against_torch(obs_type):
     """Each native game's draws, read from a twin engine on the same seed
     and actions, injected into the torch vector env; both step past done
     (the death-erase quirk) without resets."""

@@ -27,6 +27,7 @@ from gym_simpletetris_tpu_torch.models.actor_critic import ModelShard
 from gym_simpletetris_tpu_torch.ops import _build, cuda_noise
 from gym_simpletetris_tpu_torch.train import dqn
 from gym_simpletetris_tpu_torch.utils.profiling import counters
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 # cuBLAS reads it when it starts: deterministic algorithms need it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")

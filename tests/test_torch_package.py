@@ -18,6 +18,7 @@ from gym_simpletetris_tpu_torch.core import engine as E
 from gym_simpletetris_tpu_torch.core.state import init_state
 from gym_simpletetris_tpu_torch.ops import _build, cuda_step
 from gym_simpletetris_tpu_torch.utils.profiling import counters
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,7 @@ from gym_simpletetris_tpu_torch.core.state import FIELDS, state_to_numpy
 from gym_simpletetris_tpu_torch.models.actor_critic import (
     ActorCritic, params_from_flax)
 from gym_simpletetris_tpu_torch.train import ppo
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 SMALL = dict(num_envs=16, rollout_len=16, num_minibatches=4, epochs=2)
 

@@ -1,6 +1,6 @@
 """The port's flagship Rainbow learner (``train/dqn.py`` with the Nature
 trunk, noisy dueling C51 head, 3-step PER on the obs ring) against the plain
-float32 reference (``gym_simpletetris_tpu_torch/reference/rainbow.py``), on
+float32 reference (``perfbench/reference_torch/rainbow.py``), on
 seeded random weights and 84 px frames at 8 envs on the CPU, under the
 tolerances of the benchmark's comparison (``perfbench/entries/dqn_train.py``
 ``TOL``): the forward with noise and without, the C51 projection, the n-step
@@ -8,7 +8,7 @@ fold from obs-ring rows, IS weights and new priorities, one whole learner
 update; controls that each fail a tolerance (the dueling mean dropped, the
 projection shifted by an atom, activations in float8, below the
 configuration's bf16); the trainer's spans and counters; the reference's
-imports and its benchmark copy.
+imports.
 """
 
 import ast
@@ -22,13 +22,11 @@ from torch.func import functional_call
 
 from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.core import threefry
-from gym_simpletetris_tpu_torch.reference import rainbow as R
 from gym_simpletetris_tpu_torch.train import dqn, replay
 from gym_simpletetris_tpu_torch.utils import profiling
 from perfbench.entries.dqn_train import TOL, learner_checks, learner_record
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
+from perfbench.reference_torch import rainbow as R
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 PALETTE = torch.tensor([0, 128, 190], dtype=torch.uint8)
@@ -74,7 +72,6 @@ def _random_params(params, gen):
 @pytest.fixture(scope="module")
 def learned():
     """One learner update of the port from a filled ring, recorded."""
-    torch.set_num_threads(1)
     cfg = _cfg(target_update_period=1000)
     init_fn, _, chunk, net = dqn.make_train(cfg, "cpu")
     state = init_fn(2 ** 31 - 99)
@@ -228,10 +225,8 @@ def test_the_trainer_records_its_spans_and_counters():
         == 4 * (steps + 3 * updates)
 
 
-def test_the_reference_imports_nothing_of_the_port_and_its_copy_is_equal():
-    path = ROOT / "gym_simpletetris_tpu_torch" / "reference" / "rainbow.py"
-    assert path.read_bytes() == (ROOT / "perfbench" / "reference_torch"
-                                 / "rainbow.py").read_bytes()
+def test_the_reference_imports_nothing_of_the_port():
+    path = ROOT / "perfbench" / "reference_torch" / "rainbow.py"
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

@@ -19,6 +19,7 @@ from gym_simpletetris_tpu.ops.raster import (
 from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.ops import bitops, cuda_raster, raster
 from gym_simpletetris_tpu_torch.utils.profiling import counters
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 SHAPES = [(10, 20), (4, 5), (16, 8), (9, 12), (24, 20)]
 

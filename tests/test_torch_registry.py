@@ -14,13 +14,13 @@ from gym_simpletetris_tpu_torch import (
     register_gym, register_gymnasium)
 from gym_simpletetris_tpu_torch.api.registry import make_gymnasium_env
 from gym_simpletetris_tpu_torch.native import native_available
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
-from port_harness import torch_one_thread  # noqa: F401
 
 gymnasium = pytest.importorskip("gymnasium")
 
 
-def test_make_every_backend(torch_one_thread):
+def test_make_every_backend():
     env = make("SimpleTetris-v0", backend="cpu", obs_type="grayscale", seed=3)
     assert isinstance(env, TetrisEnv) and env.device.type == "cpu"
     assert env.reset().shape == (84, 84)
@@ -45,7 +45,7 @@ def test_make_every_backend(torch_one_thread):
                 make("SimpleTetris-v0", **kw)
 
 
-def test_gymnasium_env_passes_check_env(torch_one_thread):
+def test_gymnasium_env_passes_check_env():
     """ram only: the image Boxes keep the reference's declared (0, 1) range
     while the pixels are {0, 128, 190}, which ``check_env`` rejects (the JAX
     package's env likewise)."""
@@ -57,7 +57,7 @@ def test_gymnasium_env_passes_check_env(torch_one_thread):
 
 
 @pytest.mark.parametrize("obs_type", ["ram", "rgb"])
-def test_gymnasium_env_against_jax(obs_type, torch_one_thread):
+def test_gymnasium_env_against_jax(obs_type):
     kw = dict(obs_type=obs_type, reward_step=True)
     p = make_gymnasium_env(device="cpu", **kw)
     j = jax_make_env(**kw)
@@ -80,7 +80,7 @@ def test_gymnasium_env_against_jax(obs_type, torch_one_thread):
     p.close()
 
 
-def test_register_gymnasium_under_a_test_id(torch_one_thread):
+def test_register_gymnasium_under_a_test_id():
     env_id = "PortSimpleTetrisTest-v0"
     register_gymnasium(env_id)
     try:

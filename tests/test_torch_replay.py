@@ -23,9 +23,6 @@ from gym_simpletetris_tpu_torch.core.state import _key_tensor
 from gym_simpletetris_tpu_torch.train import dqn
 from gym_simpletetris_tpu_torch.train import replay as tr
 from port_harness import assert_bitwise
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 FIELDS = ("obs", "next_obs", "action", "reward", "discount", "done",
           "priority", "max_p", "ptr", "filled_slots")

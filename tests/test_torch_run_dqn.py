@@ -17,9 +17,7 @@ from gym_simpletetris_tpu.train import dqn as jax_dqn
 from gym_simpletetris_tpu.train import evaluate as jax_eval
 from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
 from gym_simpletetris_tpu_torch.train import evaluate
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 
 def _read_jsonl(path):

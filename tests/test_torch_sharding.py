@@ -21,6 +21,7 @@ from gym_simpletetris_tpu_torch import EnvConfig
 from gym_simpletetris_tpu_torch.models.actor_critic import _FLAX_LEAVES
 from gym_simpletetris_tpu_torch.train import dqn, ppo, sharding
 import torch_dist_harness as H
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 AXES = {"data": 4, "model": 2}
 

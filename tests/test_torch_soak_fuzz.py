@@ -14,13 +14,12 @@ import sys
 import pytest
 
 from gym_simpletetris_tpu_torch.core import engine as E
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import torch_soak_fuzz as soak  # noqa: E402
 
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 # seed 89's six configurations draw all six scripts and widths above 24
 ARGS = ["--configs", "6", "--batch", "8", "--steps", "64", "--seed", "89"]

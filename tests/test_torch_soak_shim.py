@@ -16,14 +16,13 @@ import pytest
 import torch
 
 from gym_simpletetris_tpu_torch.core import engine as E
-from port_harness import torch_one_thread  # noqa: F401 (a fixture)
+import port_harness  # noqa: F401 (torch on one CPU thread)
 from test_shim_fuzz import random_env_kwargs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import torch_soak_shim as soak  # noqa: E402
 
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 # seed 2's six configurations: gym grayscale (extend_dims) and rgb, native
 # ram twice; the first with penalise_holes_increase

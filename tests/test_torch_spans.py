@@ -16,6 +16,7 @@ from gym_simpletetris_tpu_torch.api import env as api_env
 from gym_simpletetris_tpu_torch.api.gym_compat import TetrisEnv
 from gym_simpletetris_tpu_torch.api.gymnasium_vector import _TorchVectorCore
 from gym_simpletetris_tpu_torch.utils import profiling
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 EVER = (0, 2 ** 63 - 1)
 DRAW_PARENTS = {"rollout.step", "env.step", "engine.clear", "vector.step"}

@@ -24,6 +24,7 @@ from gym_simpletetris_tpu_torch.core.state import (
     FIELDS, SCALAR_FIELDS, init_state)
 from gym_simpletetris_tpu_torch.ops import _build, cuda_step
 from gym_simpletetris_tpu_torch.utils import profiling
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 BATCHES = (1, 2, 31, 32, 33, 333, 512, 1000, 3584, 4096, 4097, 16384, 65536)
 NWS = (1, 2, 3, 4, 17, 32, 33)

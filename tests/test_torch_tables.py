@@ -16,6 +16,7 @@ from gym_simpletetris_tpu.ops import raster as jax_raster
 from gym_simpletetris_tpu_torch.core import config, pieces
 from gym_simpletetris_tpu_torch.core.state import key_data
 from gym_simpletetris_tpu_torch.ops import cuda_step, raster
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 CSRC = Path(__file__).resolve().parent.parent / "gym_simpletetris_tpu_torch" / "csrc"
 

@@ -63,12 +63,7 @@ def runs(tmp_path_factory):
     """JAX's (2, 2) mesh runs up to their first update, the port's
     unsharded runs and the world of 4, from the same parameters."""
     tmp = tmp_path_factory.mktemp("tensor_parallel")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _runs(tmp)
-    finally:
-        torch.set_num_threads(threads)
+    return _runs(tmp)
 
 
 def _jax_first_learn(kw, path):

@@ -30,6 +30,7 @@ import torch
 import torch_dist_harness as H
 from gym_simpletetris_tpu_torch.train import dqn
 from gym_simpletetris_tpu_torch.utils.checkpoint import restore_checkpoint
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 WORLD = 2
 TOL = dict(rtol=2e-4, atol=2e-6)
@@ -43,27 +44,22 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_ckpt")
     for d in ("tp", "unsharded"):
         os.makedirs(tmp / d)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        world = H.run_world(WORLD, "tp_ckpt_job", tmp,
-                            path=str(tmp / "tp" / "dqn.pt"),
-                            path0=str(tmp / "tp" / "init.pt"))
-        ring, _ = H.tp_ring_run(None)
-        # the unsharded layers' noisy weights on the world's parameters
-        cfg = dqn.DQNConfig(env=H.env_cfg("grayscale"), **H.TP_RING_KW)
-        network = dqn.make_train(cfg, "cpu")[3]
-        noisy = H.noisy_weights(network, {
-            k: torch.from_numpy(_whole(world, f"ring/params.{k}", v.numpy()))
-            for k, v in ring[0].params.items()})
-        H.ckpt_run(None, str(tmp / "unsharded" / "dqn.pt"),
-                   str(tmp / "unsharded" / "init.pt"))
-        cfg = dqn.DQNConfig(env=H.env_cfg(), **H.CKPT_KW)
-        _, step_fn, _, _ = dqn.make_train(cfg, "cpu")
-        one = H.continue_run(step_fn, restore_checkpoint(
-            str(tmp / "tp" / "dqn.pt"), "cpu"))
-    finally:
-        torch.set_num_threads(threads)
+    world = H.run_world(WORLD, "tp_ckpt_job", tmp,
+                        path=str(tmp / "tp" / "dqn.pt"),
+                        path0=str(tmp / "tp" / "init.pt"))
+    ring, _ = H.tp_ring_run(None)
+    # the unsharded layers' noisy weights on the world's parameters
+    cfg = dqn.DQNConfig(env=H.env_cfg("grayscale"), **H.TP_RING_KW)
+    network = dqn.make_train(cfg, "cpu")[3]
+    noisy = H.noisy_weights(network, {
+        k: torch.from_numpy(_whole(world, f"ring/params.{k}", v.numpy()))
+        for k, v in ring[0].params.items()})
+    H.ckpt_run(None, str(tmp / "unsharded" / "dqn.pt"),
+               str(tmp / "unsharded" / "init.pt"))
+    cfg = dqn.DQNConfig(env=H.env_cfg(), **H.CKPT_KW)
+    _, step_fn, _, _ = dqn.make_train(cfg, "cpu")
+    one = H.continue_run(step_fn, restore_checkpoint(
+        str(tmp / "tp" / "dqn.pt"), "cpu"))
     return tmp, world, ring, noisy, one
 
 

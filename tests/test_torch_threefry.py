@@ -11,6 +11,7 @@ import torch
 from gym_simpletetris_tpu.core import engine as jax_engine
 from gym_simpletetris_tpu_torch.core import threefry
 from gym_simpletetris_tpu_torch.core.state import _key_tensor
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 
 def _keys(n, seed=0):

@@ -17,13 +17,12 @@ from gym_simpletetris_tpu_torch.utils import video
 from gym_simpletetris_tpu_torch.utils.metrics import MetricLogger
 from gym_simpletetris_tpu_torch.utils.profiling import (
     block, cost_analysis, debug_mode, trace)
-
-from port_harness import torch_one_thread  # noqa: F401
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 
 @pytest.mark.parametrize("kw,size", [(dict(), 160), (dict(width=7, height=13), 96),
                                      (dict(width=30, height=9), 160)])
-def test_frames_from_rows_against_jax(kw, size, torch_one_thread):
+def test_frames_from_rows_against_jax(kw, size):
     """The port's frames of a rows history (torch tensors, or the uint32
     numpy rows JAX holds) equal the JAX package's, for each env index."""
     cfg = EnvConfig(auto_reset=True, **kw)
@@ -46,7 +45,7 @@ def test_frames_from_rows_against_jax(kw, size, torch_one_thread):
             video.frames_from_rows(cfg, as_u32, size=size, env_index=i), want)
 
 
-def test_record_episode_against_jax(torch_one_thread):
+def test_record_episode_against_jax():
     """The same seed gives the same episode (random actions from
     ``RandomState(seed)``, the env from ``PRNGKey(seed)``) and the same
     frames; and a policy's actions are what it returns."""

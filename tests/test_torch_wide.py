@@ -36,6 +36,7 @@ from gym_simpletetris_tpu_torch.core.state import (
     FIELDS, init_state, state_from_numpy, state_to_numpy)
 from gym_simpletetris_tpu_torch.ops import bitops, raster
 from gym_simpletetris_tpu_torch.utils.profiling import counters
+import port_harness  # noqa: F401 (torch on one CPU thread)
 
 
 def _pair_cfg(**kw):

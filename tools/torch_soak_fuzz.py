@@ -21,8 +21,8 @@ fuzzes the same games in both tools and each configuration's summary line
 Each configuration runs B games of T steps in the port's C++ oracle
 (``native.drive_many``), which also records its spawn draws. The port then
 replays them on its device: ``init_state``, ``engine_clear`` on the first
-draws, and per step ``engine_step`` on the step's draws, ``engine_clear``
-on the reset's and ``api.env._select_done``. The emitted boards, rewards,
+draws, and per step ``engine_step`` on the step's draws and
+``api.env.apply_reset_mask`` on the reset's. The emitted boards, rewards,
 dones and the final deaths and shape counts must equal the oracle's bit
 for bit. On a CUDA card the step is kernel A (``csrc/step.cu``); the clear
 and the selects are plain torch on the card. ``--instances all`` runs each
@@ -182,8 +182,8 @@ def replay(cfg, oracle, actions, device, instance=None):
         else:
             key, r = E.spawn_draw(state, r_step[t])
             o = cuda_step._launch(cfg, state, acts[t], r, key, instance)
-        cleared, _ = E.engine_clear(cfg, o.state, injected_r=r_clear[t])
-        state = api_env._select_done(o.done, cleared, o.state)
+        state, _ = api_env.apply_reset_mask(cfg, o.state, o.emitted_rows,
+                                            o.done, injected_r=r_clear[t])
         em[t], rew[t], done[t] = o.emitted_rows, o.reward, o.done
     return em, rew, done, state
 
