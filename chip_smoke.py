@@ -18,9 +18,14 @@ spawn-draw kernel bitwise against the plain draw at B = 4096 (a key chain
 at env offsets 0 and 2048, the injected-r path) and times both (device us
 by CUDA-graph replay, wrapper us by CUDA events over 200 calls); 6n holds
 the noise kernel bitwise against the plain noisy weights at the flagship
-Rainbow's three noisy layers and times it likewise. The main
-path must launch the draw kernel once for every spawn draw, and every
-plain-path run below takes the plain draw too. Then the trainer
+Rainbow's three noisy layers and times it likewise; 6r holds the reset
+kernel bitwise against the plain reset at B = 4096 and 65,536 (the done
+envs of a stepped state, and no mask; threefry and injected draws) and
+times it likewise, beside its bound. Phase 2 resets its even lanes that
+died with the reset kernel on one side and the plain reset on the other,
+both compared. The main path must launch the draw kernel once for every
+spawn draw and the reset kernel once for every reset, and every
+plain-path run below takes the plain draw and reset too. Then the trainer
 path: the lookahead heuristic (kernel A at 7 * B), the greedy evaluation of
 the line-clear PPO checkpoint (``artifacts/ppo_lineclear_params.npz``; it
 must clear at least 4 lines per episode), and PPO updates through
@@ -242,12 +247,16 @@ def _diff(a, b):
 def _check_step_kernel(cases, steps, seed0, mix="random"):
     """Each (flags, batch sizes) case: ``steps`` steps of the step kernel and
     of the plain step from the same prefilled state, every field compared,
-    with actions of ``mix`` (``kernel_timing.mix_actions``). Returns
+    with actions of ``mix`` (``kernel_timing.mix_actions``); after each step
+    the envs of even lanes that died reset, the reset kernel's state and
+    rows compared with the plain reset's (``apply_reset_mask_plain``, its
+    plain draw too). Returns
     (max_abs_err, comparisons, {(cfg, B): last emitted rows})."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig
-    from gym_simpletetris_tpu_torch.api.env import apply_reset_mask
+    from gym_simpletetris_tpu_torch.api.env import (
+        apply_reset_mask, apply_reset_mask_plain)
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.core.state import FIELDS
     from gym_simpletetris_tpu_torch.ops import cuda_step
@@ -270,29 +279,35 @@ def _check_step_kernel(cases, steps, seed0, mix="random"):
                 r = torch.as_tensor(rng.randint(1, 36, B), device=dev)
                 o_k = E.engine_step(cfg, s_k, a, injected_r=r)
                 o_p = E.engine_step_plain(cfg, s_p, a, injected_r=r)
-                pairs = [(getattr(o_k.state, f), getattr(o_p.state, f))
-                         for f in FIELDS] + [
-                    (o_k.emitted_rows, o_p.emitted_rows),
-                    (o_k.reward, o_p.reward), (o_k.done, o_p.done)]
-                d = [_diff(x, y) for x, y in pairs]
-                bad.append(torch.stack([x for x, _ in d]))
-                errs.append(torch.stack([e for _, e in d]).max())
                 n_done += o_k.done.sum()
                 n_lines += (o_k.state.lines_cleared
                             - s_k.lines_cleared).sum()
-                # odd lanes step on past death; even lanes start a new episode
+                # odd lanes step on past death; even lanes start a new
+                # episode: the reset kernel against the plain reset
                 mask = o_k.done & even
-                s_k = apply_reset_mask(cfg, o_k.state, o_k.emitted_rows, mask)[0]
-                s_p = apply_reset_mask(cfg, o_p.state, o_p.emitted_rows, mask)[0]
+                s_k, e_k = apply_reset_mask(cfg, o_k.state, o_k.emitted_rows,
+                                            mask)
+                s_p, e_p = apply_reset_mask_plain(
+                    cfg, o_p.state, o_p.emitted_rows, mask)
+                pairs = [(getattr(o_k.state, f), getattr(o_p.state, f))
+                         for f in FIELDS] + [
+                    (o_k.emitted_rows, o_p.emitted_rows),
+                    (o_k.reward, o_p.reward), (o_k.done, o_p.done)] + [
+                    (getattr(s_k, f), getattr(s_p, f)) for f in FIELDS] + [
+                    (e_k, e_p)]
+                d = [_diff(x, y) for x, y in pairs]
+                bad.append(torch.stack([x for x, _ in d]))
+                errs.append(torch.stack([e for _, e in d]).max())
             bad = torch.stack(bad).cpu().numpy()
             max_err = max(max_err, float(torch.stack(errs).max()))
             n_cmp += bad.size
             if bad.any():
                 t, f = np.argwhere(bad)[0]
-                names = list(FIELDS) + ["emitted", "reward", "done"]
+                names = list(FIELDS) + ["emitted", "reward", "done"] + [
+                    "reset " + f for f in FIELDS] + ["reset emitted"]
                 raise PhaseError(
-                    f"step kernel != plain: {flags} B={B} first at step {t}, "
-                    f"field {names[f]}")
+                    f"step or reset kernel != plain: {flags} B={B} first at "
+                    f"step {t}, field {names[f]}")
             last[cfg, B] = o_k.emitted_rows
             inst = cuda_step.launch_plan(cfg.height, cfg.num_words, B,
                                          sms).instance
@@ -561,7 +576,8 @@ _COUNTERS = {"step": "kernel.step.launches",
              "raster": "kernel.raster.launches",
              "raster_accumulate": "kernel.raster_acc.launches",
              "draw": "kernel.draw.launches",
-             "noise": "kernel.noise.launches"}
+             "noise": "kernel.noise.launches",
+             "reset": "kernel.reset.launches"}
 
 
 def _reset_counters() -> None:
@@ -574,7 +590,8 @@ def phase_main_path(board: dict, label: str):
     steps and a T-step rollout for each obs type, the rollout held to the
     same steps taken one at a time. The kernel counts are set to 0 just
     before and read just after; each kernel of the env's path must have
-    launched, the draw kernel once for every spawn draw."""
+    launched, the draw kernel once for every spawn draw and the reset
+    kernel once for every reset and auto-reset step."""
     import numpy as np
     import torch
     from gym_simpletetris_tpu_torch import EnvConfig, TetrisVectorEnv
@@ -630,6 +647,11 @@ def phase_main_path(board: dict, label: str):
     if launches["draw"] != draws:
         raise PhaseError(f"{launches['draw']} draw kernel launches for "
                          f"{draws} spawn draws on the main path")
+    # a reset, 64 steps, the rollout and the step loop, each obs type
+    resets = len(envs) * (1 + 64 + 2 * STEPS)
+    if launches["reset"] != resets:
+        raise PhaseError(f"{launches['reset']} reset kernel launches for "
+                         f"{resets} resets on the main path")
     log(f"{label}: kernel launches {launches}")
     return launches, envs
 
@@ -768,6 +790,86 @@ def phase_draw_kernel():
     return got
 
 
+RESET_TIMED_B = (B_MAIN, 65536)
+
+
+def phase_reset_kernel():
+    """6r: the reset kernel (``csrc/reset.cu``) at B = 4096 and 65,536 on
+    10 x 20, on a state after 8 random steps: with the steps' done envs as
+    the mask (a rollout's auto-reset), threefry and injected draws, and
+    with no mask (``engine_clear``), bitwise against the plain reset. Then,
+    for information, its device us by CUDA-graph replay, with L2 evicted
+    (held to its bound, ``kernel_timing.reset_bytes``) and warm, and the
+    wrapper us of ``apply_reset_mask`` (the draw and the kernel) by CUDA
+    events over 200 calls, beside the reset it replaced on the main path
+    (the draw kernel, then the plain clear and select). Returns the
+    readings by B."""
+    import numpy as np
+    import torch
+    from gym_simpletetris_tpu_torch import EnvConfig
+    from gym_simpletetris_tpu_torch.api import env as api_env
+    from gym_simpletetris_tpu_torch.core import engine as E
+    from gym_simpletetris_tpu_torch.core.state import FIELDS
+    from gym_simpletetris_tpu_torch.ops import cuda_reset
+    from gym_simpletetris_tpu_torch.utils import kernel_timing as kt
+    dev = torch.device("cuda")
+    cfg = EnvConfig()
+    flush = kt.l2_flush()
+
+    def same(a, b):
+        return all(torch.equal(getattr(a[0], f), getattr(b[0], f))
+                   for f in FIELDS) and torch.equal(a[1], b[1])
+
+    got = {}
+    for B in RESET_TIMED_B:
+        rng = np.random.RandomState(23 + B)
+        s = kt.prefilled_state(cfg, B, rng, dev)
+        for _ in range(8):
+            out = E.engine_step(cfg, s, torch.as_tensor(
+                rng.randint(0, 7, B), device=dev))
+            s = out.state
+        em, mask = out.emitted_rows, out.done
+        injected = torch.as_tensor(rng.randint(1, 36, B), device=dev)
+        for r in (None, injected):
+            if not (same(api_env.apply_reset_mask(cfg, s, em, mask, r),
+                         api_env.apply_reset_mask_plain(cfg, s, em, mask, r))
+                    and same(E.engine_clear(cfg, s, r),
+                             E.engine_clear_plain(cfg, s, r))):
+                raise PhaseError(f"reset kernel != plain reset at B={B}, "
+                                 f"injected r {r is not None}")
+        key, r = E.spawn_draw(s)
+        masked = lambda: cuda_reset.reset(cfg, s, r, key, em, mask)
+        every = lambda: cuda_reset.reset(cfg, s, r, key)
+
+        def replaced():
+            k, d = E.spawn_draw(s)
+            return api_env._select_reset(mask, *E.clear_plain(cfg, s, d, k),
+                                         s, em)
+
+        resets = int(mask.sum())
+        got[B] = g = dict(
+            resets=resets,
+            bound_us=kt.bound_us(kt.reset_bytes(cfg, B, resets)),
+            device_us=kt.device_us(masked, flush=flush),
+            l2_warm_device_us=kt.device_us(masked),
+            every_bound_us=kt.bound_us(kt.reset_bytes(cfg, B, B, False)),
+            every_device_us=kt.device_us(every, flush=flush),
+            wrapper_us=1e3 * kt.sync_ms(
+                lambda: api_env.apply_reset_mask(cfg, s, em, mask), 200),
+            replaced_wrapper_us=1e3 * kt.sync_ms(replaced, 200))
+        log(f"phase 6r reset kernel at B={B} ({resets} envs reset): equal to "
+            f"the plain reset (mask and no mask, threefry and injected "
+            f"draws); device {g['device_us']:.2f} us L2 evicted "
+            f"({g['l2_warm_device_us']:.2f} warm), bound "
+            f"{g['bound_us']:.2f} us ({100 * g['bound_us'] / g['device_us']:.1f}%);"
+            f" no mask {g['every_device_us']:.2f} us (bound "
+            f"{g['every_bound_us']:.2f} us); apply_reset_mask "
+            f"{g['wrapper_us']:.2f} us a call (the draw kernel and the "
+            f"plain clear and select it replaced: "
+            f"{g['replaced_wrapper_us']:.2f} us)")
+    return got
+
+
 def phase_noise_kernel():
     """6n: the noise kernel (``csrc/noise.cu``) against the plain noisy
     weights (``NoisyDense.noisy_weights_plain``) for the flagship Rainbow's
@@ -871,26 +973,30 @@ def _launches() -> dict:
 @contextlib.contextmanager
 def _plain_path():
     """The trainer path on the plain versions, for a comparison run: the env
-    step and raster of ``api.env``, the heuristic's lookahead step, the
-    engine's spawn draw and the noisy layers' noise."""
+    step, reset and raster of ``api.env``, the engine's clear, the
+    heuristic's lookahead step, the engine's spawn draw and the noisy
+    layers' noise."""
     from gym_simpletetris_tpu_torch.api import env as api_env
     from gym_simpletetris_tpu_torch.core import engine as E
     from gym_simpletetris_tpu_torch.models import heuristic
     from gym_simpletetris_tpu_torch.models.dqn import NoisyDense
     from gym_simpletetris_tpu_torch.ops import raster
     saved = (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
-             api_env.raster_accumulate, E.spawn_draw, NoisyDense.noisy_weights)
+             api_env.raster_accumulate, E.spawn_draw, NoisyDense.noisy_weights,
+             E.engine_clear, api_env.apply_reset_mask)
     E.engine_step = heuristic.engine_step = E.engine_step_plain
     api_env.rasterize_rows = raster.rasterize_rows_plain
     api_env.raster_accumulate = raster.raster_accumulate_plain
     E.spawn_draw = E.spawn_draw_plain
     NoisyDense.noisy_weights = NoisyDense.noisy_weights_plain
+    E.engine_clear = E.engine_clear_plain
+    api_env.apply_reset_mask = api_env.apply_reset_mask_plain
     try:
         yield
     finally:
         (E.engine_step, api_env.rasterize_rows, heuristic.engine_step,
-         api_env.raster_accumulate, E.spawn_draw,
-         NoisyDense.noisy_weights) = saved
+         api_env.raster_accumulate, E.spawn_draw, NoisyDense.noisy_weights,
+         E.engine_clear, api_env.apply_reset_mask) = saved
 
 
 def _play(cfg, act, steps):
@@ -2948,6 +3054,8 @@ def main() -> int:
         took("6-6w")
         draw = phase_draw_kernel()
         took("6d")
+        reset = phase_reset_kernel()
+        took("6r")
         noise = phase_noise_kernel()
         took("6n")
         trainer_err = phase_trainer_path()
@@ -3014,6 +3122,13 @@ def main() -> int:
         device_us=draw["device_us"],
         plain_device_us=draw["plain_device_us"], bound_by="launch",
         library_ms=None))
+    for B, r in reset.items():
+        kernels.append(dict(
+            name=f"reset:B={B}", route="cuda", source=pkg + "reset.cu",
+            replaces=None, launches=total["reset"], max_abs_err=0.0,
+            ms=r["wrapper_us"] / 1e3, plain_ms=r["replaced_wrapper_us"] / 1e3,
+            bound_ms=r["bound_us"] / 1e3, bound_by="bytes", library_ms=None,
+            **r))
     for layer, r in noise.items():
         kernels.append(dict(
             name="noise:" + layer, route="cuda", source=pkg + "noise.cu",

@@ -3,13 +3,14 @@
 Port of ``gym_simpletetris_tpu.api.env``: explicit state, ``reset`` / ``step``
 functions over a batch of envs, auto-reset, and a multi-step ``rollout`` that
 folds every step's observation into an accumulator. State and observations
-live on the env's device; on CUDA the step, the image observation and the
-image rollout's accumulation run the port's CUDA kernels
-(``ops/cuda_step.py``, ``ops/cuda_raster.py``), on the CPU their plain
-PyTorch versions. The JAX ``lax.scan`` is a Python loop here. Board rows
-are ``[H, B]``, or ``[H, NW, B]`` for wide boards (width > 24); every
-per-env select broadcasts over the trailing batch axis, so both layouts go
-through the same code.
+live on the env's device; on CUDA the step, the image observation, the
+image rollout's accumulation and the episode reset run the port's CUDA
+kernels (``ops/cuda_step.py``, ``ops/cuda_raster.py``,
+``ops/cuda_reset.py``), on the CPU their plain PyTorch versions. The JAX
+``lax.scan`` is a Python loop here. Board rows are ``[H, B]``, or
+``[H, NW, B]`` for wide boards (width > 24); every per-env select
+broadcasts over the trailing batch axis, so both layouts go through the
+same code.
 
 Observations match the reference's ``TetrisEnv._observation``: ram is the
 board[x, y] 0/1 grid, grayscale/rgb the 84 x 84 raster, delivered as float32
@@ -29,6 +30,7 @@ from ..core.pieces import PIECE_NAMES
 from ..core.state import EnvState, init_state
 from ..ops.bitops import unpack_board
 from ..ops.cuda_raster import rasterize_rows, raster_accumulate
+from ..ops.cuda_reset import reset as reset_kernel
 from ..ops.raster import grayscale_to_rgb
 from ..utils.profiling import count, span
 from . import spaces
@@ -68,18 +70,32 @@ def build_observation(cfg: EnvConfig, emitted_rows: torch.Tensor) -> torch.Tenso
     return obs_from_storage(cfg, build_observation_storage(cfg, emitted_rows))
 
 
-def _select_done(done: torch.Tensor, new: EnvState, old: EnvState) -> EnvState:
-    """Per-env select over the state: batch is the last axis of every field
-    (rows [H, B] or [H, NW, B]) but the key, which is global (the advanced
-    key is kept)."""
-    pick = lambda n, o: torch.where(done, n, o)
-    return old.replace(
-        rows=pick(new.rows, old.rows),
-        shape_counts=pick(new.shape_counts, old.shape_counts),
-        key=new.key,
-        **{f: pick(getattr(new, f), getattr(old, f)) for f in (
+def _select_reset(mask: torch.Tensor, cleared: EnvState,
+                  cleared_rows: torch.Tensor, state: EnvState,
+                  emitted: torch.Tensor):
+    """Per-env select of the reset envs' cleared state and rows over the
+    others' own: batch is the last axis of every field (rows [H, B] or
+    [H, NW, B]) but the key, which is global (the clear's is kept)."""
+    pick = lambda n, o: torch.where(mask, n, o)
+    new_state = state.replace(
+        rows=pick(cleared.rows, state.rows),
+        shape_counts=pick(cleared.shape_counts, state.shape_counts),
+        key=cleared.key,
+        **{f: pick(getattr(cleared, f), getattr(state, f)) for f in (
             "piece", "rot", "ax", "ay", "lock", "time", "score", "holes",
             "lines_cleared", "piece_height", "deaths")})
+    return new_state, pick(cleared_rows, emitted)
+
+
+def apply_reset_mask_plain(cfg: EnvConfig, state: EnvState,
+                           emitted: torch.Tensor, mask: torch.Tensor,
+                           injected_r: Optional[torch.Tensor] = None,
+                           cleared_from: Optional[EnvState] = None):
+    """``apply_reset_mask`` in plain PyTorch on any device, its draw
+    included (the reset kernel's oracle)."""
+    cleared = E.engine_clear_plain(
+        cfg, state if cleared_from is None else cleared_from, injected_r)
+    return _select_reset(mask, *cleared, state, emitted)
 
 
 @span("env.reset_mask")
@@ -93,12 +109,16 @@ def apply_reset_mask(cfg: EnvConfig, state: EnvState, emitted: torch.Tensor,
     through here. ``injected_r`` replaces the clear's spawn draws.
     ``cleared_from`` (default ``state``) is the state the selected envs are
     cleared from: the gymnasium adapter clears its pending envs from their
-    pre-step state and keeps the stepped state of the others."""
-    cleared_state, cleared_rows = E.engine_clear(
-        cfg, state if cleared_from is None else cleared_from,
-        injected_r=injected_r)
-    new_state = _select_done(mask, cleared_state, state)
-    return new_state, torch.where(mask, cleared_rows, emitted)
+    pre-step state and keeps the stepped state of the others. On the card
+    two launches, the clear's draw and the reset kernel
+    (``ops/cuda_reset.py``); on the CPU the plain body, ``engine_clear``
+    and a select."""
+    src = state if cleared_from is None else cleared_from
+    if not state.rows.is_cuda:
+        return _select_reset(mask, *E.engine_clear(cfg, src, injected_r),
+                             state, emitted)
+    key, r = E.spawn_draw(src, injected_r)
+    return reset_kernel(cfg, state, r, key, emitted, mask, cleared_from)
 
 
 def _step_and_reset(cfg: EnvConfig, state: EnvState, action: torch.Tensor,

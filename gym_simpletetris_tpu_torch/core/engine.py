@@ -15,8 +15,10 @@ piece-mask placement (a two-word funnel shift, ``piece_masks``).
 ``engine_step`` dispatches on the state's device: a CUDA state goes to the
 step kernel (``ops/cuda_step.py``), a CPU state to the plain body below;
 ``spawn_draw`` likewise to the draw kernel (``ops/cuda_draw.py``) or to
-``spawn_draw_plain``. ``engine_step_plain`` runs the plain body and the
-plain draw on any device.
+``spawn_draw_plain``; ``engine_clear`` to the reset kernel
+(``ops/cuda_reset.py``) or to ``clear_plain``. ``engine_step_plain`` and
+``engine_clear_plain`` run the plain bodies and the plain draw on any
+device.
 
 Words are int32 tensors holding uint32 bits. A right shift copies bit 31 down,
 so every ``>>`` of a board word is masked; masks reach bit 31 at width 24 and
@@ -431,14 +433,10 @@ def engine_step(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     return step(cfg, state, action, r, key)
 
 
-@span("engine.clear")
-def engine_clear(cfg: EnvConfig, state: EnvState,
-                 injected_r: Optional[torch.Tensor] = None):
-    """Episode reset (``TetrisEngine.clear``): zero the board and the
-    per-episode counters and spawn a piece, carrying over the lock counter,
-    deaths and shape counts. Returns (state, emitted rows): the reset
-    observation is the empty board, without the spawned piece."""
-    key, r = spawn_draw(state, injected_r)
+def clear_plain(cfg: EnvConfig, state: EnvState, r: torch.Tensor,
+                key: torch.Tensor):
+    """``engine_clear``'s body in plain PyTorch with the spawn draws ``r``
+    and the carry ``key`` given: (state, emitted rows)."""
     piece_new = sample_piece(state.shape_counts, r)
     spawn_oh = _iota(7, state.device)[:, None] == piece_new[None, :]
     zeros = torch.zeros_like(state.time)
@@ -449,6 +447,30 @@ def engine_clear(cfg: EnvConfig, state: EnvState,
         score=zeros, holes=zeros, lines_cleared=zeros, piece_height=zeros,
         shape_counts=state.shape_counts + spawn_oh.to(_I32), key=key)
     return new_state, rows0
+
+
+def engine_clear_plain(cfg: EnvConfig, state: EnvState,
+                       injected_r: Optional[torch.Tensor] = None):
+    """The plain PyTorch episode reset on any device, its draw included
+    (the reset kernel's oracle)."""
+    key, r = spawn_draw_plain(state, injected_r)
+    return clear_plain(cfg, state, r, key)
+
+
+@span("engine.clear")
+def engine_clear(cfg: EnvConfig, state: EnvState,
+                 injected_r: Optional[torch.Tensor] = None):
+    """Episode reset (``TetrisEngine.clear``): zero the board and the
+    per-episode counters and spawn a piece, carrying over the lock counter,
+    deaths and shape counts. Returns (state, emitted rows): the reset
+    observation is the empty board, without the spawned piece. A CUDA state
+    goes to the reset kernel (``ops/cuda_reset.py``) with no mask, a CPU
+    state to ``clear_plain``."""
+    key, r = spawn_draw(state, injected_r)
+    if state.rows.is_cuda:
+        from ..ops.cuda_reset import reset
+        return reset(cfg, state, r, key)
+    return clear_plain(cfg, state, r, key)
 
 
 def render_rows(cfg: EnvConfig, state: EnvState) -> torch.Tensor:

@@ -138,4 +138,6 @@ def load_library() -> ctypes.CDLL:
     lib.tetris_noise_launch.argtypes = [vp, ctypes.c_uint, vp, vp, vp, vp, vp,
                                         vp, vp, i, i, i, i, i, vp]
     lib.tetris_noise_launch.restype = i
+    lib.tetris_reset_launch.argtypes = [vp]   # ops/cuda_reset._ARGS
+    lib.tetris_reset_launch.restype = i
     return lib

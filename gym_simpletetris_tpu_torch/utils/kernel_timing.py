@@ -4,9 +4,10 @@
   of a CUDA graph of launches, so no host time falls between them;
 - ``sync_ms``: one wrapper call as its caller sees it (Python and ctypes
   included), by CUDA events over back-to-back calls;
-- ``step_bytes`` / ``raster_bytes`` / ``noise_bytes``: the bytes kernel
-  A, kernels B, C and the noise kernel must move; ``bound_us`` turns bytes
-  into the least time at the H100's HBM rate;
+- ``step_bytes`` / ``raster_bytes`` / ``noise_bytes`` / ``reset_bytes``:
+  the bytes kernel A, kernels B, C, the noise kernel and the reset kernel
+  must move; ``bound_us`` turns bytes into the least time at the H100's
+  HBM rate;
 - ``step_device_times``: kernel A at one state, for two action mixes, with
   its bound and a plain-stream yardstick; ``prefilled_state``,
   ``step_inputs`` and ``mix_actions`` make the states and actions it is
@@ -110,6 +111,17 @@ def step_bytes(cfg, B: int) -> int:
     read, reward written (4 bytes each), done written (1 byte), per env:
     397 B at 10 x 20."""
     return B * (12 * cfg.height * cfg.num_words + 157)
+
+
+def reset_bytes(cfg, B: int, resets: int, masked: bool = True) -> int:
+    """The reset kernel's bytes for ``resets`` of B envs resetting: every
+    env writes its rows and emitted rows (4 * H * NW each), 11 scalars and
+    7 counts; a carried env reads as much, a reset env its draw, lock,
+    deaths and counts (40 bytes); with a mask, its byte an env. Per env
+    with few resets: 465 B at 10 x 20."""
+    carried = 8 * cfg.height * cfg.num_words + 72
+    return (B * carried + (B - resets) * carried + 40 * resets
+            + (B if masked else 0))
 
 
 def prefilled_state(cfg, B: int, rng, device):

@@ -212,7 +212,7 @@ def test_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libtetris_kernels_") and path.suffix == ".so"
     assert sorted(p.name for p in _build._sources()) == [
-        "draw.cu", "noise.cu", "raster.cu", "step.cu"]
+        "draw.cu", "noise.cu", "raster.cu", "reset.cu", "step.cu"]
 
 
 def test_library_name_follows_the_headers(tmp_path, monkeypatch):
