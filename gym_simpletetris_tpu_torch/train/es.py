@@ -22,6 +22,16 @@ goes straight into the port. The members' forwards are one
 (a grouped convolution for images), each member's product of bf16-rounded
 operands summed in float32 and rounded once, as the unbatched network does.
 
+Spans (``utils/profiling.py``, recorded under a torch profiler):
+``es.perturb`` (the draw of eps and the members' parameters),
+``es.rollout`` (the env reset and the horizon loop), ``es.forward`` (each
+step's ``member_forward``) and ``es.update`` (fitness, ranks,
+``es_update``); counters ``es.generations``, ``es.member_forwards``
+(members' networks evaluated, each on its ``envs_per_member`` envs) and
+``es.noise_elements`` (normals drawn). A generation never waits for the
+card, so the host runs ahead of the device and a span's host interval is
+not the device time of its work.
+
 The key stream is split as in the JAX trainer and the perturbations are
 ``jax.random.normal``'s bit for bit (``core/threefry``), so from the same
 theta and key a generation draws the same eps and, where the forwards agree,
@@ -61,6 +71,7 @@ from ..core.config import EnvConfig
 from ..core.state import _key_tensor
 from ..models.actor_critic import _FLAX_LEAVES
 from ..models.dqn import RamDQN, build_q_network
+from ..utils.profiling import count, span
 from .ppo import _seed_of
 from .replay import _sum_f32
 from .sharding import DataParallel
@@ -245,31 +256,40 @@ def make_es(cfg: ESConfig, device="cuda", mesh=None):
 
     @torch.no_grad()
     def gen_step_fn(state: ESState):
+        count("es.generations")
         k_eps, k_reset, key = threefry.split(state.key, 3)
-        eps_half = threefry.normal(k_eps, (pop // 2, dim))
-        eps = torch.cat([eps_half, -eps_half])                 # [pop, dim]
-        members = unravel(threefry._fma(eps[m0:m0 + n_mem], cfg.sigma,
-                                        state.theta[None]))
-        obs, env_state = reset_fn(ecfg, n_mem * k_env, k_reset, device=device,
-                                  env_offset=m0 * k_env)
-        ret = torch.zeros(n_mem * k_env, dtype=torch.float32, device=device)
-        for _ in range(cfg.horizon):
-            q = member_forward(members, obs.reshape((n_mem, k_env)
-                                                    + obs.shape[1:]))
-            a = torch.argmax(q, dim=-1).to(torch.int32)
-            obs, env_state, reward, _, _ = step_fn(ecfg, env_state,
-                                                   a.reshape(-1))
-            ret = ret + reward
-        fitness = dp.gather(_sum_f32(ret.reshape(n_mem, k_env))
-                            * _f32_recip(k_env), 0)
-        theta, grad = es_update(state.theta, eps, fitness, sigma=cfg.sigma,
-                                lr=cfg.lr, weight_decay=cfg.weight_decay,
-                                rank_shaping=cfg.rank_shaping)
-        norm = lambda x: threefry.sqrt_f32(_sum_f32(x * x))
-        metrics = {"fitness_mean": _mean_f32(fitness),
-                   "fitness_max": fitness.max(),
-                   "fitness_std": _std_f32(fitness),
-                   "theta_norm": norm(theta), "grad_norm": norm(grad)}
+        with span("es.perturb"):
+            eps_half = threefry.normal(k_eps, (pop // 2, dim))
+            count("es.noise_elements", eps_half.numel())
+            eps = torch.cat([eps_half, -eps_half])             # [pop, dim]
+            members = unravel(threefry._fma(eps[m0:m0 + n_mem], cfg.sigma,
+                                            state.theta[None]))
+        with span("es.rollout"):
+            obs, env_state = reset_fn(ecfg, n_mem * k_env, k_reset,
+                                      device=device, env_offset=m0 * k_env)
+            ret = torch.zeros(n_mem * k_env, dtype=torch.float32,
+                              device=device)
+            for _ in range(cfg.horizon):
+                with span("es.forward"):
+                    count("es.member_forwards", n_mem)
+                    q = member_forward(members, obs.reshape(
+                        (n_mem, k_env) + obs.shape[1:]))
+                a = torch.argmax(q, dim=-1).to(torch.int32)
+                obs, env_state, reward, _, _ = step_fn(ecfg, env_state,
+                                                       a.reshape(-1))
+                ret = ret + reward
+        with span("es.update"):
+            fitness = dp.gather(_sum_f32(ret.reshape(n_mem, k_env))
+                                * _f32_recip(k_env), 0)
+            theta, grad = es_update(state.theta, eps, fitness,
+                                    sigma=cfg.sigma, lr=cfg.lr,
+                                    weight_decay=cfg.weight_decay,
+                                    rank_shaping=cfg.rank_shaping)
+            norm = lambda x: threefry.sqrt_f32(_sum_f32(x * x))
+            metrics = {"fitness_mean": _mean_f32(fitness),
+                       "fitness_max": fitness.max(),
+                       "fitness_std": _std_f32(fitness),
+                       "theta_norm": norm(theta), "grad_norm": norm(grad)}
         return ESState(theta=theta, key=key,
                        generation=state.generation + 1), metrics
 

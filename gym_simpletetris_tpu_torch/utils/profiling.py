@@ -27,7 +27,10 @@
   draws), beside its spans ``dqn.actor``, ``dqn.learn``,
   ``dqn.target_sync``, ``replay.sample`` (a learner batch's draw and
   gather), ``replay.priority`` (the priority write-back) and
-  ``model.noise``.
+  ``model.noise``; the ES trainer's ``es.generations``,
+  ``es.member_forwards`` (members' networks evaluated) and
+  ``es.noise_elements`` (normals drawn), beside its spans ``es.perturb``,
+  ``es.rollout``, ``es.forward`` and ``es.update``.
 - ``spans_between(lo_ns, hi_ns)``, ``counters()`` and ``reset()`` read and
   clear both.
 - ``trace(dir)``: context manager around ``torch.profiler`` (host ops, and
